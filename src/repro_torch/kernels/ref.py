@@ -1,0 +1,40 @@
+"""Plain PyTorch versions of every kernel in this package.
+
+They compute in f32 and cast back to the input type, as the JAX package's
+oracles do.  The CPU path of each kernel wrapper runs them, and the smoke
+run holds each CUDA kernel against them on the card.
+
+A float32 matrix product on the card must be IEEE f32, not TF32, for the
+1e-5 parity tolerance, so importing this module sets
+``torch.backends.cuda.matmul.allow_tf32 = False``.
+"""
+from __future__ import annotations
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def gemm_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a.float() @ b.float()).to(a.dtype)
+
+
+def gru_cell_ref(x: torch.Tensor, h: torch.Tensor, params: dict
+                 ) -> torch.Tensor:
+    """r/z/n-gate GRU step (same convention as core.kernels_ir.gru_cell)."""
+    dtype = x.dtype
+    x, h = x.float(), h.float()
+    p = {k: v.float() for k, v in params.items()}
+    r = torch.sigmoid(x @ p["Wr"] + h @ p["Ur"] + p["br"])
+    z = torch.sigmoid(x @ p["Wz"] + h @ p["Uz"] + p["bz"])
+    n = torch.tanh(x @ p["Wn"] + r * (h @ p["Un"] + p["bnh"]) + p["bnx"])
+    return ((1 - z) * n + z * h).to(dtype)
+
+
+def gru_seq_ref(xs: torch.Tensor, h0: torch.Tensor, params: dict
+                ) -> torch.Tensor:
+    """GRU over a [T, B, E] sequence; returns the final hidden state."""
+    h = h0
+    for x in xs:
+        h = gru_cell_ref(x, h, params)
+    return h
