@@ -4,41 +4,59 @@
     python3 chip_smoke.py [--seed N]
 
 It drives the port's main path, the paper's own loop: compile an ISAMIR
-program against the modeled GPU (``gpu_sm(8)``), take the tile plan out of
-the ``CompiledKernel`` and launch the hand-written CUDA kernels with it.
+program against the modeled GPU (``gpu_sm(8)``), tune it on the card, and
+launch the hand-written CUDA kernels with the plan.
 
 1. Prints the card's name and power limit (``nvidia-smi``).
 2. Builds the kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source,
    all at once).
-3. Main path, with every launch counter set to 0 just before it and read
-   just after: the 8 DeepBench GEMMs (paper Fig. 3) in f32 and in bf16
-   through ``scheduled_gemm`` (K1), then the 4 DeepBench GRU sizes (paper
-   Fig. 4; E = H, T = 128) through ``FusedGRU`` (K4 over K3).
+3. Three phases of the main path, each with every launch counter set to 0
+   just before it and read just after (one ``launches`` line each):
+
+   * ``plan`` — with an empty tuning cache as the default, so the tile is
+     the compiler's: the 8 DeepBench GEMMs (paper Fig. 3) in f32 and in
+     bf16 through ``scheduled_gemm`` (K1), then the 4 DeepBench GRU sizes
+     (paper Fig. 4; E = H, T = 128) through ``FusedGRU`` (K4 over K3);
+   * ``tune`` — the port's tuner (``python -m repro_torch.search.tune
+     --suite gemm --backend measure --target gpu_sm --trials 8``) on the 8
+     GEMMs, K1 timed on the card, into a fresh cache file under
+     ``build/repro_torch/``; one ``tune`` line per case;
+   * ``tuned`` — with that cache as the default: ``scheduled_gemm`` on the
+     8 GEMMs in f32 and bf16 (K1 at the tuned tile), and ``gemm_bias_act``
+     (K2, ``tile=None``: the tuned tile) on the 8 GEMMs x {"", sigmoid,
+     tanh, relu} x {f32, bf16} with bias uniform(-1, 1).
+
 4. Holds each output against the plain PyTorch version on the same inputs,
    and times the kernel, the plain version and one PyTorch library call
    computing the same function with CUDA events (inputs repeated, so L2 is
-   warm where they fit in it).  One JSON line per case.
+   warm where they fit in it).  One JSON line per case; the ``tuned_gemm``
+   lines time K1 at the tuned tile beside K1 at the plan tile.
 5. Prints the ``kernels`` line and, last, the device line.  Exits non-zero,
-   before the device line, when a comparison fails or a kernel of the path
-   was never launched; when there is no card it prints nothing and exits 1.
+   before the device line, when a comparison fails, a kernel of a phase was
+   never launched in it, or the tuner failed or wrote fewer than 8
+   ``measure`` records; when there is no card it prints nothing and exits 1.
 
 Inputs: uniform(-1, 1) from ``np.random.default_rng(seed)``; the GRU
 weights are uniform(-1/sqrt(H), 1/sqrt(H)), PyTorch's own GRU init.
 Tolerances: GEMM f32 rtol 1e-5 and atol 1e-5 * max|want| — sums of up to
 2560 products taken in another order than the plain version's (cuBLAS), so
-the error scales with the outputs' magnitude (up to ~80 here); GEMM bf16
+the error scales with the outputs' magnitude (up to ~80 here); K2 f32 the
+same with max|A @ B + bias|, the activation's input; GEMM and K2 bf16
 rtol = atol = 2e-2 (``tests/test_kernels.py``); one GRU step (K3) rtol =
 atol = 1e-5 and the GRU sequence rtol 1e-4, atol 1e-5
 (``tests/test_kernels.py``).
 Bounds: the larger of bytes (each input read once, each output written
-once) over 3.35 TB/s and operations over 67 TFLOP/s (f32, CUDA cores) or
-989 TFLOP/s (bf16) — NVIDIA H100 SXM data-sheet peaks at 700 W.  In the
+once) over 3.35 TB/s and operations (2mnk for a GEMM) over 67 TFLOP/s (f32,
+CUDA cores) or 989 TFLOP/s (bf16) — NVIDIA H100 SXM data-sheet peaks at
+700 W.  K2's library call is ``torch.addmm(bias, A, B)`` followed by the
+activation's torch op: two launches where there is an activation.  In the
 ``kernels`` line each time sums that kernel's calls over the main path's
-shapes, one call per shape (for K3, one step).
+shapes, one call per shape (for K3, one step; K1 at the tuned tile).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -57,6 +75,8 @@ GEMM_SIZES = [(1024, 128, 1024), (2048, 64, 2048), (1760, 128, 1760),
               (35, 700, 2048), (7680, 1, 2560)]
 GRU_SIZES = [(32, 512), (32, 1024), (16, 1536), (32, 1792)]
 STEPS = 128
+ACTS = ("", "sigmoid", "tanh", "relu")
+TUNE_TRIALS = 8
 GEMM_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
 GRU_TOL = (1e-4, 1e-5)
 CELL_TOL = (1e-5, 1e-5)
@@ -102,6 +122,25 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def entry(name, source, replaces, count, rs):
+    """One kernel's line: times summed over the main path's shapes."""
+    bounds = [r["bound"] for r in rs]
+    by_ops = sum(b for b, by in bounds if by == "operations")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": count,
+            "max_abs_err": max(r["err"] for r in rs),
+            "ms": sum(r["ms"] for r in rs),
+            "plain_ms": sum(r["plain_ms"] for r in rs),
+            "bound_ms": sum(b for b, _ in bounds),
+            "bound_by": "operations"
+            if by_ops >= sum(b for b, _ in bounds) / 2 else "bytes",
+            "library_ms": sum(r["library_ms"] for r in rs)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -112,9 +151,12 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core.sysgraph import gpu_sm
     from repro_torch.kernels import cuda, ref
-    from repro_torch.kernels.gemm import gemm
+    from repro_torch.kernels.gemm import (block_tile, gemm, gemm_bias_act,
+                                          tuned_block)
     from repro_torch.kernels.gru import FusedGRU, PARAM_NAMES, gru_cell, gru_seq
-    from repro_torch.kernels.ops import (gru_tile, plan_gru, scheduled_gemm)
+    from repro_torch.kernels.ops import gru_tile, plan_gru, scheduled_gemm
+    from repro_torch.search import tune
+    from repro_torch.search.cache import TuningCache, set_default_cache
 
     dev = torch.device("cuda")
     graph = gpu_sm(8)
@@ -136,7 +178,9 @@ def main() -> int:
         for m, n, k in GEMM_SIZES:
             a = torch.from_numpy(uniform((m, k))).to(dev, dtype)
             b = torch.from_numpy(uniform((k, n))).to(dev, dtype)
-            gemm_cases.append({"mnk": (m, n, k), "dtype": dtype, "a": a, "b": b})
+            bias = torch.from_numpy(uniform((n,))).to(dev)
+            gemm_cases.append({"mnk": (m, n, k), "dtype": dtype, "a": a,
+                               "b": b, "bias": bias})
     gru_cases = []
     for batch, hidden in GRU_SIZES:
         inp, s = hidden, hidden ** -0.5
@@ -150,21 +194,89 @@ def main() -> int:
             "h0": torch.from_numpy(uniform((batch, hidden))).to(dev)})
     torch.cuda.synchronize()
 
-    # ---- the main path, counted -------------------------------------------
-    gemm.launches = gru_cell.launches = gru_seq.launches = 0
-    for c in gemm_cases:
-        c["out"], c["cfg"] = scheduled_gemm(c["a"], c["b"], graph=graph)
-    for c in gru_cases:
-        c["out"] = c["model"](c["xs"], c["h0"])
-    torch.cuda.synchronize()
-    launches = {"gemm": gemm.launches, "gru_cell": gru_cell.launches,
-                "gru_seq": gru_seq.launches}
+    counters = {"gemm": gemm, "gemm_bias_act": gemm_bias_act,
+                "gru_cell": gru_cell, "gru_seq": gru_seq}
+    phase_launches = {}
+    failures = []
+
+    @contextlib.contextmanager
+    def counted(phase: str, path: tuple[str, ...]):
+        """Counters at 0 just before the phase, read just after it; every
+        kernel of the phase's path must have launched."""
+        for c in counters.values():
+            c.launches = 0
+        yield
+        torch.cuda.synchronize()
+        got = {name: c.launches for name, c in counters.items()}
+        phase_launches[phase] = got
+        emit({"phase": phase, "launches": got})
+        missing = [name for name in path if got[name] == 0]
+        if missing:
+            failures.append(f"{phase}: kernels never launched: {missing}")
+
+    # ---- main path, phase plan: the compiler's tile ----------------------
+    os.makedirs(cuda.BUILD_DIR, exist_ok=True)
+    empty = cuda.BUILD_DIR / f"tuning-empty-{os.getpid()}.json"
+    set_default_cache(TuningCache(str(empty)))
+    with counted("plan", ("gemm", "gru_cell", "gru_seq")):
+        for c in gemm_cases:
+            c["out"], c["cfg"] = scheduled_gemm(c["a"], c["b"], graph=graph)
+        for c in gru_cases:
+            c["out"] = c["model"](c["xs"], c["h0"])
+
+    # ---- main path, phase tune: K1 measured into a fresh cache -----------
+    cache_path = cuda.BUILD_DIR / f"tuning-{os.getpid()}-{time.time_ns()}.json"
+    report_path = cache_path.with_suffix(".report.json")
+    t0 = time.perf_counter()
+    with counted("tune", ("gemm",)):
+        with contextlib.redirect_stdout(sys.stderr):
+            tune_rc = tune.main([
+                "--suite", "gemm", "--backend", "measure",
+                "--target", "gpu_sm", "--trials", str(TUNE_TRIALS),
+                "--seed", str(args.seed), "--cache", str(cache_path),
+                "--json", str(report_path)])
+    tune_s = time.perf_counter() - t0
+    if tune_rc != 0:
+        failures.append(f"tuner exited {tune_rc}")
+    tuned_cache = TuningCache(str(cache_path))
+    records = {r.meta.get("case"): r for r in tuned_cache.load().values()
+               if r.backend == "measure"}
+    rows = json.loads(report_path.read_text())["rows"] \
+        if report_path.exists() else []
+    for row in rows:
+        rec = records.get(row["case"])
+        emit({"phase": "tune", "case": row["case"],
+              "greedy_cost_s": row["greedy_cost_s"],
+              "tuned_cost_s": row["tuned_cost_s"],
+              "block": list(rec.tile) if rec else None,
+              "tile": list(block_tile(rec.tile)) if rec else None,
+              "measured_best_ms": row["measured_s"] * 1e3
+              if row["measured_s"] is not None else None,
+              "tiles_ms": {t: v * 1e3 for t, v in
+                           rec.meta.get("tiles_s", {}).items()} if rec else None,
+              "trials": row["trials"], "oracle_exact": row["exact"],
+              "validated": row["validated"]})
+    emit({"phase": "tune", "seconds": tune_s, "measure_records": len(records),
+          "device": next(iter(records.values())).meta.get("device")
+          if records else None})
+    if len(records) < len(GEMM_SIZES):
+        failures.append(f"the tuner wrote {len(records)} measure records, "
+                        f"not {len(GEMM_SIZES)}")
+
+    # ---- main path, phase tuned: K1 and K2 at the tuned tile -------------
+    set_default_cache(tuned_cache)
+    with counted("tuned", ("gemm", "gemm_bias_act")):
+        for c in gemm_cases:
+            c["tuned_out"], c["tuned_cfg"] = scheduled_gemm(c["a"], c["b"],
+                                                            graph=graph)
+            c["k2_out"] = {fn: gemm_bias_act(c["a"], c["b"], c["bias"], fn)
+                           for fn in ACTS}
 
     # ---- held against the plain versions, and timed -----------------------
-    failures = []
-    k1 = []
+    k1, k2 = [], []
     for c in gemm_cases:
-        a, b, dtype, (m, n, k) = c["a"], c["b"], c["dtype"], c["mnk"]
+        a, b, bias, dtype, (m, n, k) = (c["a"], c["b"], c["bias"], c["dtype"],
+                                        c["mnk"])
         want = ref.gemm_ref(a, b)
         rtol, atol = GEMM_TOL[dtype]
         if dtype == torch.float32:
@@ -177,20 +289,71 @@ def main() -> int:
         library_ms = time_ms(lambda: torch.matmul(a, b), reps)
         bound_ms, bound_by = bound(a.element_size() * (m * k + k * n + m * n),
                                    2.0 * m * n * k, dtype)
-        row = {"phase": "gemm", "m": m, "n": n, "k": k,
-               "dtype": str(dtype).removeprefix("torch."),
-               "block": list(c["cfg"].block), "tile": list(tile),
-               "grid": list(c["cfg"].grid),
-               "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "max_abs_err": err, "rtol": rtol,
-               "atol": atol, "ok": ok}
-        emit(row)
-        k1.append({"ms": kernel_ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, "bound": (bound_ms, bound_by),
-                   "err": err})
+        emit({"phase": "gemm", "m": m, "n": n, "k": k,
+              "dtype": dtype_name(dtype),
+              "block": list(c["cfg"].block), "tile": list(tile),
+              "grid": list(c["cfg"].grid),
+              "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+              "library_ms": library_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "max_abs_err": err, "rtol": rtol,
+              "atol": atol, "ok": ok})
         if not ok:
             failures.append(f"gemm {m}x{n}x{k} {dtype}: max err {err}")
+
+        # K1 at the tuned tile, timed beside the plan tile in turns
+        tuned = c["tuned_cfg"]
+        t_err, t_ok = mismatch(c["tuned_out"], want, rtol, atol)
+        plan_ms = time_ms(lambda: gemm(a, b, tile=tile), reps)
+        tuned_ms = time_ms(lambda: gemm(a, b, tile=tuned.tile), reps)
+        tuned_ms2 = time_ms(lambda: gemm(a, b, tile=tuned.tile), reps)
+        plan_ms2 = time_ms(lambda: gemm(a, b, tile=tile), reps)
+        emit({"phase": "tuned_gemm", "m": m, "n": n, "k": k,
+              "dtype": dtype_name(dtype), "tuned_block": list(tuned.block),
+              "tuned_tile": list(tuned.tile), "plan_tile": list(tile),
+              "tuned_ms": (tuned_ms + tuned_ms2) / 2,
+              "plan_ms": (plan_ms + plan_ms2) / 2,
+              "max_abs_err": t_err, "ok": t_ok})
+        k1.append({"ms": (tuned_ms + tuned_ms2) / 2, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "bound": (bound_ms, bound_by),
+                   "err": max(err, t_err)})
+        if not t_ok:
+            failures.append(f"tuned gemm {m}x{n}x{k} {dtype}: max err {t_err}")
+
+        # K2: every activation, at the tuned tile
+        block = tuned_block(m, n, k)
+        k2_tile = block_tile(block) if block else None
+        pre_max = float((a.float() @ b.float() + bias).abs().max())
+        lib_bias = bias.to(dtype)
+        k2_bound = bound(a.element_size() * (m * k + k * n + m * n) + 4 * n,
+                         2.0 * m * n * k, dtype)
+        for fn in ACTS:
+            want = ref.gemm_bias_act_ref(a, b, bias, fn)
+            rtol, atol = GEMM_TOL[dtype]
+            if dtype == torch.float32:
+                atol *= pre_max
+            err, ok = mismatch(c["k2_out"][fn], want, rtol, atol)
+            act = ref.ACTIVATIONS[fn]
+            kernel_ms = time_ms(
+                lambda: gemm_bias_act(a, b, bias, fn, tile=k2_tile), reps)
+            plain_ms = time_ms(
+                lambda: ref.gemm_bias_act_ref(a, b, bias, fn), reps)
+            library_ms = time_ms(
+                lambda: act(torch.addmm(lib_bias, a, b)), reps)
+            emit({"phase": "gemm_bias_act", "m": m, "n": n, "k": k,
+                  "dtype": dtype_name(dtype), "fn": fn,
+                  "tile": list(k2_tile) if k2_tile else None,
+                  "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                  "library_ms": library_ms,
+                  "library": "torch.addmm" + (f" + torch.{fn}" if fn else ""),
+                  "library_launches": 2 if fn else 1,
+                  "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+                  "max_abs_err": err, "rtol": rtol, "atol": atol, "ok": ok})
+            k2.append({"ms": kernel_ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "bound": k2_bound,
+                       "err": err})
+            if not ok:
+                failures.append(f"gemm_bias_act {m}x{n}x{k} {dtype} {fn!r}: "
+                                f"max err {err}")
 
     k3, k4 = [], []
     for c in gru_cases:
@@ -239,42 +402,31 @@ def main() -> int:
                            step_flops, torch.float32)
         seq_bound = bound(w_bytes + 4 * (STEPS * batch * inp + 2 * batch * hidden),
                           STEPS * step_flops, torch.float32)
-        row = {"phase": "gru", "batch": batch, "hidden": hidden, "inp": inp,
-               "steps": STEPS, "block": list(block), "tile": list(tile),
-               "step_ms": step_ms, "step_plain_ms": step_plain_ms,
-               "step_library_ms": step_lib_ms, "step_bound_ms": step_bound[0],
-               "step_bound_by": step_bound[1],
-               "seq_ms": seq_ms, "seq_plain_ms": seq_plain_ms,
-               "seq_library_ms": seq_lib_ms, "seq_bound_ms": seq_bound[0],
-               "seq_bound_by": seq_bound[1],
-               "steps_x_step_bound_ms": STEPS * step_bound[0],
-               "step_max_abs_err": step_err, "max_abs_err": err,
-               "library_max_abs_err": lib_err, "rtol": GRU_TOL[0],
-               "atol": GRU_TOL[1], "ok": ok and step_ok}
-        emit(row)
+        emit({"phase": "gru", "batch": batch, "hidden": hidden, "inp": inp,
+              "steps": STEPS, "block": list(block), "tile": list(tile),
+              "step_ms": step_ms, "step_plain_ms": step_plain_ms,
+              "step_library_ms": step_lib_ms, "step_bound_ms": step_bound[0],
+              "step_bound_by": step_bound[1],
+              "seq_ms": seq_ms, "seq_plain_ms": seq_plain_ms,
+              "seq_library_ms": seq_lib_ms, "seq_bound_ms": seq_bound[0],
+              "seq_bound_by": seq_bound[1],
+              "steps_x_step_bound_ms": STEPS * step_bound[0],
+              "step_max_abs_err": step_err, "max_abs_err": err,
+              "library_max_abs_err": lib_err, "rtol": GRU_TOL[0],
+              "atol": GRU_TOL[1], "ok": ok and step_ok})
         k3.append({"ms": step_ms, "plain_ms": step_plain_ms,
                    "library_ms": step_lib_ms, "bound": step_bound,
                    "err": step_err})
         k4.append({"ms": seq_ms, "plain_ms": seq_plain_ms,
                    "library_ms": seq_lib_ms, "bound": seq_bound, "err": err})
 
-    def entry(name, source, replaces, count, rs):
-        """One kernel's line: times summed over the main path's shapes."""
-        bounds = [r["bound"] for r in rs]
-        by_ops = sum(b for b, by in bounds if by == "operations")
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": count,
-                "max_abs_err": max(r["err"] for r in rs),
-                "ms": sum(r["ms"] for r in rs),
-                "plain_ms": sum(r["plain_ms"] for r in rs),
-                "bound_ms": sum(b for b, _ in bounds),
-                "bound_by": "operations"
-                if by_ops >= sum(b for b, _ in bounds) / 2 else "bytes",
-                "library_ms": sum(r["library_ms"] for r in rs)}
-
+    launches = {name: sum(p[name] for p in phase_launches.values())
+                for name in counters}
     kernels = [
         entry("gemm", "src/repro_torch/csrc/gemm.cu",
               "src/repro/kernels/gemm.py:103", launches["gemm"], k1),
+        entry("gemm_bias_act", "src/repro_torch/csrc/gemm.cu",
+              "src/repro/kernels/gemm.py:157", launches["gemm_bias_act"], k2),
         entry("gru_cell", "src/repro_torch/csrc/gru.cu",
               "src/repro/kernels/gru.py:83", launches["gru_cell"], k3),
         entry("gru_seq", "src/repro_torch/kernels/gru.py",

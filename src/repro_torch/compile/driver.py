@@ -2,9 +2,10 @@
 
 ``compile_program`` is the general entry (any ISAMIR program, any system
 graph, any Approach); ``compile_gemm`` / ``compile_gru`` are the workload
-frontends the kernels and the smoke run share; ``compile_selection`` runs
-the back half of the pipeline when an instruction selection is already in
-hand.
+frontends the kernels, the tuner and the smoke run share;
+``compile_selection`` runs the back half of the pipeline when an instruction
+selection is already in hand (the search evaluators), and ``DeltaScheduler``
+re-schedules many approaches of one selection incrementally.
 
 Every entry produces (or replays) a ``CompiledKernel``.  Fresh compiles are
 memoized in-process per artifact key.  The default target is the modeled
@@ -265,3 +266,65 @@ def recompile_schedule(art: CompiledKernel) -> None:
     ctx.selection = art.selection
     SchedulePass().run(ctx)
     art.schedule = ctx.schedule
+
+
+# --------------------------------------------------------------------------- #
+# Incremental re-scheduling across a config population
+# --------------------------------------------------------------------------- #
+
+
+class DeltaScheduler:
+    """Schedules many Approach variants of one fixed Selection, reusing the
+    unchanged per-instruction prefix of previously scheduled *anchors*.
+
+    An anchor is a fully scheduled config kept with its per-instruction
+    resume points (``core.scheduler.schedule_with_segments``).  A new key
+    whose policy triple matches an anchor and whose per-instr tiles share a
+    non-empty prefix resumes from the deepest snapshot before the first
+    changed instruction (``schedule_incremental``) — verified bit-equal to
+    the from-scratch schedule (``tests/test_torch_search.py`` holds the
+    port's scores to the scalar path).  Keys come from
+    ``repro_torch.search.batch.BatchPlan.analyze``.
+    """
+
+    def __init__(self, selection: Selection, graph: SystemGraph,
+                 max_anchors: int = 8):
+        from ..core.scheduler import schedule_incremental, \
+            schedule_with_segments
+        self.sel = selection
+        self.graph = graph
+        self.max_anchors = max_anchors
+        self._full = schedule_with_segments
+        self._inc = schedule_incremental
+        #: (key, schedule, segments) of fresh runs, FIFO-trimmed
+        self.anchors: list[tuple] = []
+        self.stats = {"fresh": 0, "delta": 0}
+
+    def schedule_for(self, approach: Approach, key: tuple):
+        """The schedule for ``approach`` (whose BatchPlan key is ``key``),
+        via the deepest-prefix anchor when one applies."""
+        tiles, pol = key[0], key[1:]
+        best = None                     # (first_changed, schedule, segments)
+        for a_key, a_sched, a_segs in self.anchors:
+            if a_key[1:] != pol:
+                continue
+            n = 0
+            for ta, tb in zip(a_key[0], tiles):
+                if ta != tb:
+                    break
+                n += 1
+            # a resume needs the snapshot taken after instr n-1
+            if n >= 1 and (n - 1) in a_segs \
+                    and (best is None or n > best[0]):
+                best = (n, a_sched, a_segs)
+        if best is not None and best[0] < len(tiles):
+            sched, _ = self._inc(self.sel, self.graph, approach,
+                                 best[1], best[2], best[0])
+            self.stats["delta"] += 1
+            return sched
+        sched, segs = self._full(self.sel, self.graph, approach)
+        self.stats["fresh"] += 1
+        self.anchors.append((key, sched, segs))
+        if len(self.anchors) > self.max_anchors:
+            self.anchors.pop(0)
+        return sched

@@ -1,7 +1,10 @@
-// K1: C = A @ B, a shared-memory-tiled SIMT GEMM for sm_90a.
+// K1: C = A @ B, a shared-memory-tiled SIMT GEMM for sm_90a, and
+// K2: C = act(A @ B + bias), the same main loop with an epilogue.
 //
 // Replaces: src/repro/kernels/gemm.py::gemm (the Pallas TPU kernel
-// `_matmul_kernel`, grid (M/bm, N/bn, K/bk) with k innermost).
+// `_matmul_kernel`, grid (M/bm, N/bn, K/bk) with k innermost) and
+// src/repro/kernels/gemm.py::gemm_bias_act (the same grid; bias + act on
+// the last k step while the output block is still in VMEM).
 //
 // What bounds it on an H100 (data-sheet peaks): in f32 the DeepBench shapes
 // are bound by operations (67 TFLOP/s on the CUDA cores), except the skinny
@@ -21,6 +24,16 @@
 // type and widened to f32 when read; the output is rounded to the input
 // type once.  Tensor cores (wgmma), TMA and a multi-stage pipeline are later
 // work.
+//
+// K2's epilogue is a template flag (EPI), so K1's instantiations compile to
+// the code they had and the epilogue only doubles the instantiation count.
+// With EPI the f32 bias (one value per column, loaded once per thread) is
+// added to the f32 register accumulators and the activation applied there,
+// before the single rounding to the input type: the Pallas kernel's last-k
+// epilogue without a trip through memory.  The activation is a runtime,
+// warp-uniform argument (0 none, 1 sigmoid, 2 tanh, 3 relu).  expf and tanhf
+// are the accurate library functions, not the fast intrinsics, and the file
+// is built without --use_fast_math: the f32 parity tolerance is 1e-5.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -46,10 +59,22 @@ template <typename T> __device__ __forceinline__ T zero() {
   return from_f32<T>(0.0f);
 }
 
-template <typename T, int BM, int BN, int BK>
+enum Act { kNone = 0, kSigmoid = 1, kTanh = 2, kRelu = 3 };
+
+__device__ __forceinline__ float activate(float v, int act) {
+  switch (act) {
+    case kSigmoid: return 1.0f / (1.0f + expf(-v));
+    case kTanh: return tanhf(v);
+    case kRelu: return fmaxf(v, 0.0f);
+    default: return v;
+  }
+}
+
+template <typename T, int BM, int BN, int BK, bool EPI>
 __global__ void __launch_bounds__(kThreads)
     gemm_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                T* __restrict__ c, int m, int n, int k) {
+                const float* __restrict__ bias, T* __restrict__ c, int m,
+                int n, int k, int act) {
   constexpr int TM = BM / 16;  // rows of C per thread
   constexpr int TN = BN / 16;  // columns of C per thread
   // Every tile holds at least kThreads elements (16 x 16), so the load
@@ -102,6 +127,12 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
 
+  float bias_v[TN];
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    const int gq = col0 + tx + 16 * j;
+    bias_v[j] = (EPI && gq < n) ? bias[gq] : 0.0f;
+  }
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int gr = row0 + ty + 16 * i;
@@ -109,67 +140,93 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int gq = col0 + tx + 16 * j;
-      if (gq < n) c[(size_t)gr * n + gq] = from_f32<T>(acc[i][j]);
+      if (gq >= n) continue;
+      float v = acc[i][j];
+      if constexpr (EPI) v = activate(v + bias_v[j], act);
+      c[(size_t)gr * n + gq] = from_f32<T>(v);
     }
   }
 }
 
-template <typename T, int BM, int BN, int BK>
-int launch(const void* a, const void* b, void* c, int m, int n, int k,
-           cudaStream_t stream) {
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  gemm_kernel<T, BM, BN, BK><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(c),
-      m, n, k);
+// The operands of one launch, passed down the tile dispatch unchanged.
+struct Args {
+  const void* a;
+  const void* b;
+  const float* bias;
+  void* c;
+  int m, n, k, act;
+  cudaStream_t stream;
+};
+
+template <typename T, bool EPI, int BM, int BN, int BK>
+int launch(const Args& x) {
+  const dim3 grid((x.n + BN - 1) / BN, (x.m + BM - 1) / BM);
+  gemm_kernel<T, BM, BN, BK, EPI><<<grid, kThreads, 0, x.stream>>>(
+      static_cast<const T*>(x.a), static_cast<const T*>(x.b), x.bias,
+      static_cast<T*>(x.c), x.m, x.n, x.k, x.act);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int BM, int BN>
-int dispatch_bk(int bk, const void* a, const void* b, void* c, int m, int n,
-                int k, cudaStream_t s) {
+template <typename T, bool EPI, int BM, int BN>
+int dispatch_bk(int bk, const Args& x) {
   switch (bk) {
-    case 16: return launch<T, BM, BN, 16>(a, b, c, m, n, k, s);
-    case 32: return launch<T, BM, BN, 32>(a, b, c, m, n, k, s);
+    case 16: return launch<T, EPI, BM, BN, 16>(x);
+    case 32: return launch<T, EPI, BM, BN, 32>(x);
     default: return -1;
   }
 }
 
-template <typename T, int BM>
-int dispatch_bn(int bn, int bk, const void* a, const void* b, void* c, int m,
-                int n, int k, cudaStream_t s) {
+template <typename T, bool EPI, int BM>
+int dispatch_bn(int bn, int bk, const Args& x) {
   switch (bn) {
-    case 16: return dispatch_bk<T, BM, 16>(bk, a, b, c, m, n, k, s);
-    case 32: return dispatch_bk<T, BM, 32>(bk, a, b, c, m, n, k, s);
-    case 64: return dispatch_bk<T, BM, 64>(bk, a, b, c, m, n, k, s);
-    case 128: return dispatch_bk<T, BM, 128>(bk, a, b, c, m, n, k, s);
+    case 16: return dispatch_bk<T, EPI, BM, 16>(bk, x);
+    case 32: return dispatch_bk<T, EPI, BM, 32>(bk, x);
+    case 64: return dispatch_bk<T, EPI, BM, 64>(bk, x);
+    case 128: return dispatch_bk<T, EPI, BM, 128>(bk, x);
     default: return -1;
   }
 }
 
-template <typename T>
-int dispatch_bm(int bm, int bn, int bk, const void* a, const void* b, void* c,
-                int m, int n, int k, cudaStream_t s) {
+template <typename T, bool EPI>
+int dispatch_bm(int bm, int bn, int bk, const Args& x) {
   switch (bm) {
-    case 16: return dispatch_bn<T, 16>(bn, bk, a, b, c, m, n, k, s);
-    case 32: return dispatch_bn<T, 32>(bn, bk, a, b, c, m, n, k, s);
-    case 64: return dispatch_bn<T, 64>(bn, bk, a, b, c, m, n, k, s);
-    case 128: return dispatch_bn<T, 128>(bn, bk, a, b, c, m, n, k, s);
+    case 16: return dispatch_bn<T, EPI, 16>(bn, bk, x);
+    case 32: return dispatch_bn<T, EPI, 32>(bn, bk, x);
+    case 64: return dispatch_bn<T, EPI, 64>(bn, bk, x);
+    case 128: return dispatch_bn<T, EPI, 128>(bn, bk, x);
+    default: return -1;
+  }
+}
+
+template <bool EPI>
+int dispatch(int dtype, int bm, int bn, int bk, const Args& x) {
+  switch (dtype) {
+    case 0: return dispatch_bm<float, EPI>(bm, bn, bk, x);
+    case 1: return dispatch_bm<__nv_bfloat16, EPI>(bm, bn, bk, x);
     default: return -1;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch, or -1 for a dtype or tile this library was not built for.
+// dtype: 0 = float32, 1 = bfloat16.  Both entries return cudaGetLastError()
+// after the launch, or -1 for a dtype, tile or activation this library was
+// not built for.
 extern "C" int repro_gemm(int dtype, int bm, int bn, int bk, const void* a,
                           const void* b, void* c, int m, int n, int k,
                           void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return dispatch_bm<float>(bm, bn, bk, a, b, c, m, n, k, s);
-    case 1:
-      return dispatch_bm<__nv_bfloat16>(bm, bn, bk, a, b, c, m, n, k, s);
-    default: return -1;
-  }
+  const Args x{a, b, nullptr, c, m, n, k, kNone,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch<false>(dtype, bm, bn, bk, x);
+}
+
+// act: 0 none, 1 sigmoid, 2 tanh, 3 relu.  bias: N float32 values.
+extern "C" int repro_gemm_bias_act(int dtype, int bm, int bn, int bk, int act,
+                                   const void* a, const void* b,
+                                   const void* bias, void* c, int m, int n,
+                                   int k, void* stream) {
+  if (act < kNone || act > kRelu) return -1;
+  const Args x{a, b, static_cast<const float*>(bias), c, m, n, k, act,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch<true>(dtype, bm, bn, bk, x);
 }

@@ -3,27 +3,30 @@
 ``scheduled_gemm`` is the end-to-end story on the card: the compilation
 driver (``repro_torch.compile``: map -> select -> schedule -> lower against
 the modeled GPU, ``gpu_sm(8)``) decides the block, ``launch_config`` turns
-that block into one CUDA block's tile, and K1 runs with it.
-``scheduled_gru`` does the same for the GRU sequence (K4 over K3).
+that block into one CUDA block's tile, and K1 runs with it.  When the port's
+tuning cache (``repro_torch.search``) holds a record for the shape, its
+block — measured on the card by ``python -m repro_torch.search.tune
+--backend measure`` — takes the compiler's place.  ``scheduled_gru`` does
+the same for the GRU sequence (K4 over K3).
 
 The GPU lowering (``pallas_gpu_gemm``) describes a thread-block *cluster*
 of ``GPU_SMS_PER_CLUSTER`` = 16 SMs: its block fills the cluster's shared
 memory (about 5.5x one block's 227 KB) and need not be a power of two.
 The bridge shares the cluster's tile out over its 16 SMs and rounds each
-share to the power of two the kernels are built for.  Mapping the cluster
-block onto a real thread-block cluster is later work.
+share to the power of two the kernels are built for (``gemm.block_tile``).
+Mapping the cluster block onto a real thread-block cluster is later work.
 """
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 
 import torch
 
 from ..compile import CompileError, compile_gemm, compile_gru
 from ..core.sysgraph import GPU_SMS_PER_CLUSTER, SystemGraph
-from .gemm import THREADS, TILE_K, TILE_MN, gemm
-from .gru import TILE_B, TILE_H, gru_seq
+from .gemm import (THREADS, block_tile, clamp_choice, gemm, gemm_bias_act,
+                   pow2_at_least, tuned_block, tuned_record)
+from .gru import TILE_B, TILE_H, gru_cell, gru_seq
 
 #: the largest shared memory one block can use on Hopper
 MAX_SMEM_BYTES = 232_448
@@ -31,14 +34,6 @@ MAX_SMEM_BYTES = 232_448
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
-
-
-def _pow2_at_least(x: int) -> int:
-    return 1 << max(0, int(x) - 1).bit_length()
-
-
-def _clamp(x: int, choices: tuple[int, ...]) -> int:
-    return min(max(x, choices[0]), choices[-1])
 
 
 @dataclass(frozen=True)
@@ -61,23 +56,18 @@ def gemm_smem_bytes(tile: tuple[int, int, int], dtype: torch.dtype) -> int:
 
 
 def launch_config(lowering: dict, dtype: torch.dtype) -> LaunchConfig:
-    """Map the compiler's cluster block to one CUDA block's tile.
-
-    The cluster's (bm, bn) output block is shared out over its SMs as a
-    sqrt(16) x sqrt(16) = 4 x 4 arrangement; each share and the reduction
-    depth bk round up to a power of two and clamp to the tiles K1 is built
-    for (BM, BN in 16..128, BK in 16..32).  So every tile dim is a power of
-    two, at least 16 and at most max(16, the block dim rounded up to a power
-    of two); shared memory is recomputed for ``dtype``; the grid covers the
-    block x grid region of the lowering, hence M x N."""
+    """Map the compiler's cluster block to one CUDA block's tile
+    (``gemm.block_tile``: a 4 x 4 share of the cluster's output block, each
+    dim rounded up to a power of two and clamped to the built tiles).  So
+    every tile dim is a power of two, at least 16 and at most max(16, the
+    block dim rounded up to a power of two); shared memory is recomputed for
+    ``dtype``; the grid covers the block x grid region of the lowering,
+    hence M x N."""
     if lowering.get("kind") != "pallas_gpu_gemm":
         raise CompileError(f"not a GPU GEMM lowering: {lowering!r}")
     bm, bn, bk = (int(v) for v in lowering["block"])
     gm, gn, _ = (int(v) for v in lowering["grid"])
-    split = math.isqrt(GPU_SMS_PER_CLUSTER)
-    tile = (_clamp(_pow2_at_least(_cdiv(bm, split)), TILE_MN),
-            _clamp(_pow2_at_least(_cdiv(bn, split)), TILE_MN),
-            _clamp(_pow2_at_least(bk), TILE_K))
+    tile = block_tile((bm, bn, bk))
     smem = gemm_smem_bytes(tile, dtype)
     if smem > MAX_SMEM_BYTES:
         raise CompileError(f"tile {tile} needs {smem} B of shared memory")
@@ -94,17 +84,31 @@ def gru_tile(block: tuple[int, int]) -> tuple[int, int]:
     is shared out over the cluster's 16 SMs.  Both round up to a power of
     two and clamp to the tiles K3 is built for."""
     bb, bh = (int(v) for v in block)
-    return (_clamp(_pow2_at_least(bb), TILE_B),
-            _clamp(_pow2_at_least(bh) // GPU_SMS_PER_CLUSTER, TILE_H))
+    return (clamp_choice(pow2_at_least(bb), TILE_B),
+            clamp_choice(pow2_at_least(bh) // GPU_SMS_PER_CLUSTER, TILE_H))
 
 
 def plan_gemm(m: int, n: int, k: int, dtype: torch.dtype = torch.float32,
-              approach: str = "greedy", graph: SystemGraph | None = None
-              ) -> tuple[LaunchConfig, float]:
+              approach: str = "greedy", graph: SystemGraph | None = None,
+              use_cache: bool = True) -> tuple[LaunchConfig, float]:
     """Compile an (m, n, k) GEMM against ``graph`` (default ``gpu_sm(8)``)
     through ``repro_torch.compile``; return (its K1 launch, modeled
-    seconds)."""
-    art = compile_gemm(m, n, k, approach=approach, graph=graph)
+    seconds).
+
+    With ``use_cache`` (default), a record of the port's tuning cache for
+    the shape short-circuits planning: its block (a ``measure`` record's
+    before a ``cost`` one's, clamped to the problem) becomes the launch, and
+    its modeled cost is returned as recorded.  The lookup happens on every
+    call, so activating a cache mid-process takes effect at once."""
+    rec = tuned_record(m, n, k, graph) if use_cache else None
+    if rec is not None:
+        from ..search.cache import clamp_tile
+        block = clamp_tile(rec.tile, m, n, k)
+        lowering = {"kind": "pallas_gpu_gemm", "block": list(block),
+                    "grid": [_cdiv(e, b) for e, b in zip((m, n, k), block)]}
+        return launch_config(lowering, dtype), rec.cost
+    art = compile_gemm(m, n, k, approach=approach, graph=graph,
+                       use_cache=use_cache)
     return launch_config(art.lowering, dtype), art.cost
 
 
@@ -148,6 +152,7 @@ def scheduled_gru(xs: torch.Tensor, h0: torch.Tensor, gru,
 
 
 __all__ = [
-    "LaunchConfig", "gru_tile", "launch_config", "plan_gemm", "plan_gru",
-    "scheduled_gemm", "scheduled_gru",
+    "LaunchConfig", "gemm", "gemm_bias_act", "gru_cell", "gru_seq",
+    "gru_tile", "launch_config", "plan_gemm", "plan_gru", "scheduled_gemm",
+    "scheduled_gru", "tuned_block",
 ]

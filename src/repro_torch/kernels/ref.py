@@ -19,6 +19,17 @@ def gemm_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.float() @ b.float()).to(a.dtype)
 
 
+ACTIVATIONS = {"": lambda x: x, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
+               "relu": torch.relu}
+
+
+def gemm_bias_act_ref(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
+                      fn: str = "") -> torch.Tensor:
+    """act(A @ B + bias): product, bias and activation in f32, one cast to
+    the input type at the end."""
+    return ACTIVATIONS[fn](a.float() @ b.float() + bias.float()).to(a.dtype)
+
+
 def gru_cell_ref(x: torch.Tensor, h: torch.Tensor, params: dict
                  ) -> torch.Tensor:
     """r/z/n-gate GRU step (same convention as core.kernels_ir.gru_cell)."""

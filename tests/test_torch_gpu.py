@@ -1,17 +1,23 @@
 """On the card only (marker ``gpu``): every CUDA kernel of the port against
-its plain PyTorch version, and the slice end to end.  Imports nothing of
+its plain PyTorch version, the measured tuner's evaluator, and the slice end
+to end.  Imports nothing of
 JAX, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.sysgraph import gpu_sm
 from repro_torch.kernels import ref
-from repro_torch.kernels.gemm import DEFAULT_TILE, gemm
+from repro_torch.kernels.gemm import (ACTS, DEFAULT_TILE, TILE_K, TILE_MN,
+                                      block_tile, gemm, gemm_bias_act)
 from repro_torch.kernels.gru import PARAM_NAMES, FusedGRU, gru_cell, gru_seq
 from repro_torch.kernels.ops import scheduled_gemm, scheduled_gru
+from repro_torch.search.evaluate import MeasuredGemmEvaluator
 
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
@@ -64,6 +70,49 @@ def test_gemm_kernel_on_card(cuda_device, tdt):
                 as_f32(got), as_f32(want), rtol=tol["rtol"],
                 atol=tol["atol"] * scale)
     assert gemm.launches == before + 4 * len(tiles)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+def test_gemm_bias_act_kernel_on_card(cuda_device, tdt):
+    """K2 against its plain version: every activation at every built tile,
+    on a ragged shape, with the bias in f32 and in the input type."""
+    tol = TOL[tdt]
+    rng = np.random.default_rng(6)
+    m, n, k = 130, 70, 190
+    a = to_torch(rand(rng, (m, k)), tdt, cuda_device)
+    b = to_torch(rand(rng, (k, n)), tdt, cuda_device)
+    bias = to_torch(rand(rng, (n,)), device=cuda_device)
+    scale = float((a.float() @ b.float() + bias).abs().max()) \
+        if tdt == torch.float32 else 1.0
+    tiles = list(itertools.product(TILE_MN, TILE_MN, TILE_K))
+    before = gemm_bias_act.launches
+    for fn in ACTS:
+        want = ref.gemm_bias_act_ref(a, b, bias, fn)
+        for tile in tiles:
+            got = gemm_bias_act(a, b, bias, fn, tile=tile)
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(
+                as_f32(got), as_f32(want), rtol=tol["rtol"],
+                atol=tol["atol"] * scale, err_msg=f"{fn!r} {tile}")
+        got = gemm_bias_act(a, b, bias.to(tdt), fn)
+        np.testing.assert_allclose(
+            as_f32(got),
+            as_f32(ref.gemm_bias_act_ref(a, b, bias.to(tdt), fn)),
+            rtol=tol["rtol"], atol=tol["atol"] * scale)
+    assert gemm_bias_act.launches == before + len(ACTS) * (len(tiles) + 1)
+
+
+@pytest.mark.gpu
+def test_measured_evaluator_on_card(cuda_device):
+    ev = MeasuredGemmEvaluator(1024, 128, 1024, gpu_sm(8))
+    configs = [{}, {"tile_i": 1024, "tile_j": 512, "tile_k": 32}]
+    tiles = [ev.tile_for(c) for c in configs]
+    assert tiles[0] != tiles[1]
+    assert tiles == [block_tile(ev.block_for(c)) for c in configs]
+    for c in configs:
+        seconds = ev(c)
+        assert np.isfinite(seconds) and 0 < seconds < 1
 
 
 @pytest.mark.gpu

@@ -1,6 +1,6 @@
 """The port's kernels against the JAX package's: the CPU path of every
-wrapper against the Pallas kernels in interpret mode and against
-``repro.kernels.ref``, on the shapes and tolerances of
+wrapper (K1, K2, K3, K4) against the Pallas kernels in interpret mode and
+against ``repro.kernels.ref``, on the shapes and tolerances of
 ``tests/test_kernels.py``; and the slice end to end."""
 import jax.numpy as jnp
 import numpy as np
@@ -10,9 +10,11 @@ import torch
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 from repro.kernels.gemm import gemm as jax_gemm
+from repro.kernels.gemm import gemm_bias_act as jax_gemm_bias_act
 from repro.kernels.gru import gru_cell as jax_gru_cell
 from repro.kernels.gru import gru_seq as jax_gru_seq
-from repro_torch.kernels.gemm import gemm
+from repro_torch.kernels import ref
+from repro_torch.kernels.gemm import gemm, gemm_bias_act
 from repro_torch.kernels.gru import (PARAM_NAMES, FusedGRU, gru_cell,
                                      gru_seq)
 from repro_torch.kernels.ops import launch_config, plan_gru, scheduled_gemm
@@ -87,6 +89,35 @@ def test_gemm_block_sweep_matches_pallas(block):
     got = as_f32(gemm(to_torch(a), to_torch(b), tile=tile))
     want = jax_gemm(to_jax(a), to_jax(b), block=block, interpret=True)
     np.testing.assert_allclose(got, as_f32(want), **F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fn", ["", "sigmoid", "tanh", "relu"])
+@pytest.mark.parametrize("m,n,k", [(96, 80, 64), (130, 70, 190)])
+def test_gemm_bias_act_matches_pallas(m, n, k, fn, dtype):
+    """K2's CPU path against the fused Pallas kernel (interpret mode) and
+    the JAX oracle; (96, 80, 64) is ``tests/test_kernels.py``'s shape, the
+    other one is ragged against the (128, 128, 128) block."""
+    jdt, tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(1 + m + n + k)
+    a, b, bias = rand(rng, (m, k)), rand(rng, (k, n)), rand(rng, (n,))
+    got = gemm_bias_act(to_torch(a, tdt), to_torch(b, tdt), to_torch(bias),
+                        fn=fn)
+    assert got.dtype == tdt
+    got = as_f32(got)
+    ja, jb, jbias = to_jax(a, jdt), to_jax(b, jdt), to_jax(bias)
+    want = jax_gemm_bias_act(ja, jb, jbias, fn=fn, block=(128, 128, 128),
+                             interpret=True)
+    np.testing.assert_allclose(got, as_f32(want), **tol)
+    np.testing.assert_allclose(
+        got, as_f32(jax_ref.gemm_bias_act_ref(ja, jb, jbias, fn=fn)), **tol)
+    # a bias in the input type is widened to f32, as the JAX kernel does
+    np.testing.assert_allclose(
+        as_f32(gemm_bias_act(to_torch(a, tdt), to_torch(b, tdt),
+                             to_torch(bias, tdt), fn=fn)),
+        as_f32(ref.gemm_bias_act_ref(to_torch(a, tdt), to_torch(b, tdt),
+                                     to_torch(bias, tdt).float(), fn)),
+        rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("B,E,H", [(4, 16, 32), (8, 64, 64), (3, 10, 50)])

@@ -8,7 +8,7 @@ from repro.search.tune import DEEPBENCH_GEMM_SIZES
 from repro_torch.compile import CompileError, compile_gemm
 from repro_torch.core.sysgraph import gpu_sm
 from repro_torch.kernels import cuda
-from repro_torch.kernels.gemm import THREADS, gemm
+from repro_torch.kernels.gemm import THREADS, gemm, gemm_bias_act
 from repro_torch.kernels.gru import (PARAM_NAMES, TILE_B, TILE_H, FusedGRU,
                                      gru_cell, gru_seq)
 from repro_torch.kernels.ops import (MAX_SMEM_BYTES, gru_tile, launch_config,
@@ -102,9 +102,13 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_cpu_path_launches_nothing():
-    gemm.launches = gru_cell.launches = gru_seq.launches = 0
+    gemm.launches = gemm_bias_act.launches = 0
+    gru_cell.launches = gru_seq.launches = 0
     a, b = torch.rand(40, 24), torch.rand(24, 56)
     torch.testing.assert_close(scheduled_gemm(a, b)[0], a @ b)
+    bias = torch.rand(56)
+    torch.testing.assert_close(gemm_bias_act(a, b, bias, "sigmoid"),
+                               torch.sigmoid(a @ b + bias))
     model = FusedGRU.from_numpy(gru_numpy_params(), device="cpu")
     assert all(model.params()[n].device.type == "cpu" for n in PARAM_NAMES)
     xs, h0 = torch.rand(3, 2, 6), torch.rand(2, 8)
@@ -112,7 +116,8 @@ def test_cpu_path_launches_nothing():
     torch.testing.assert_close(out, scheduled_gru(xs, h0, model))
     torch.testing.assert_close(gru_cell(xs[0], h0, model.params()),
                                gru_seq(xs[:1], h0, model.params()))
-    assert (gemm.launches, gru_cell.launches, gru_seq.launches) == (0, 0, 0)
+    assert (gemm.launches, gemm_bias_act.launches, gru_cell.launches,
+            gru_seq.launches) == (0, 0, 0, 0)
 
 
 def test_wrappers_reject_what_no_kernel_takes():
@@ -123,6 +128,15 @@ def test_wrappers_reject_what_no_kernel_takes():
         gemm(a, torch.rand(5, 8))
     with pytest.raises(TypeError):
         gemm(a, torch.rand(4, 8, dtype=torch.float64))
+    b, bias = torch.rand(4, 8), torch.rand(8)
+    with pytest.raises(ValueError, match="activation"):
+        gemm_bias_act(a, b, bias, fn="gelu")
+    with pytest.raises(ValueError, match="bias"):
+        gemm_bias_act(a, b, torch.rand(7))
+    with pytest.raises(ValueError, match="bias"):
+        gemm_bias_act(a, b, bias.double())
+    with pytest.raises(ValueError, match="tile"):
+        gemm_bias_act(a, b, bias, tile=(16, 16, 64))
     p = FusedGRU(6, 8, device="cpu").params()
     with pytest.raises(ValueError, match="tile"):
         gru_cell(torch.rand(2, 6), torch.rand(2, 8), p, tile=(8, 16))
