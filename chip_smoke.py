@@ -26,15 +26,29 @@ launch the hand-written CUDA kernels with the plan.
      (K2, ``tile=None``: the tuned tile) on the 8 GEMMs x {"", sigmoid,
      tanh, relu} x {f32, bf16} with bias uniform(-1, 1).
 
+   K1 and K2 run on the main loop their dtype and K take (``wgmma``: bf16
+   after one transposing pass of B; ``simt``: f32), with split-K where the
+   tiles are fewer than the SMs; the ``launches`` lines also count the
+   transposing passes (``gemm_transpose``) and split-K reduces
+   (``gemm_reduce``).
+
 4. Holds each output against the plain PyTorch version on the same inputs,
-   and times the kernel, the plain version and one PyTorch library call
-   computing the same function with CUDA events (inputs repeated, so L2 is
-   warm where they fit in it).  One JSON line per case; the ``tuned_gemm``
-   lines time K1 at the tuned tile beside K1 at the plan tile.
+   and times the kernel (its whole launch sequence), the plain version and
+   one PyTorch library call computing the same function with CUDA events
+   (inputs repeated, so L2 is warm where they fit in it).  One JSON line
+   per case, with the launch (route, split, threads, shared memory, grid)
+   and the registers and spills ``-Xptxas -v`` reported for the main loop's
+   instantiation.  The ``gemm`` lines also give the device time of each
+   kernel of K1's launch sequence (transposing pass, main loop, reduce)
+   from a ``torch.profiler`` trace of 5 calls (``device_ms``).  The
+   ``tuned_gemm`` lines time K1 at the tuned tile beside K1 at the plan
+   tile.
 5. Prints the ``kernels`` line and, last, the device line.  Exits non-zero,
    before the device line, when a comparison fails, a kernel of a phase was
-   never launched in it, or the tuner failed or wrote fewer than 8
-   ``measure`` records; when there is no card it prints nothing and exits 1.
+   never launched in it, a bf16 DeepBench GEMM did not take the wgmma route
+   or a launch with fewer tiles than SMs did not split K, or the tuner
+   failed or wrote fewer than 8 ``measure`` records; when there is no card
+   it prints nothing and exits 1.
 
 Inputs: uniform(-1, 1) from ``np.random.default_rng(seed)``; the GRU
 weights are uniform(-1/sqrt(H), 1/sqrt(H)), PyTorch's own GRU init.
@@ -102,6 +116,34 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+#: the kernels of K1's and K2's launch sequence, by name in a profiler trace
+SEQUENCE_KERNELS = {"transpose": ("transpose_kernel",),
+                    "main": ("simt_kernel", "wgmma_kernel"),
+                    "reduce": ("reduce_kernel",)}
+
+
+def device_ms(fn, reps: int) -> dict | None:
+    """Device time per call of each kernel of a K1/K2 launch sequence
+    (``SEQUENCE_KERNELS``), from a ``torch.profiler`` trace of ``reps``
+    calls after a warm-up; ``None`` when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(SEQUENCE_KERNELS, 0.0)
+    for ev in prof.key_averages():
+        for part, names in SEQUENCE_KERNELS.items():
+            if any(nm in ev.key for nm in names):
+                out[part] += ev.self_device_time_total / 1e3 / reps
+    if not out["main"]:
+        return None
+    out["sum"] = sum(out.values())
+    return out
+
+
 def bound(nbytes: float, flops: float, dtype: torch.dtype) -> tuple[float, str]:
     """(least time in ms, what bounds it) on the data-sheet peaks."""
     t_bytes, t_ops = nbytes / HBM_BW, flops / PEAK[dtype]
@@ -151,7 +193,11 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core.sysgraph import gpu_sm
     from repro_torch.kernels import cuda, ref
-    from repro_torch.kernels.gemm import (block_tile, gemm, gemm_bias_act,
+    from repro_torch.kernels.gemm import (MIN_SPLIT_STEPS, block_tile,
+                                          device_sms, gemm, gemm_bias_act,
+                                          gemm_launch, gemm_reduce,
+                                          gemm_transpose, kernel_resources,
+                                          operand_route, route_tile,
                                           tuned_block)
     from repro_torch.kernels.gru import FusedGRU, PARAM_NAMES, gru_cell, gru_seq
     from repro_torch.kernels.ops import gru_tile, plan_gru, scheduled_gemm
@@ -195,9 +241,34 @@ def main() -> int:
     torch.cuda.synchronize()
 
     counters = {"gemm": gemm, "gemm_bias_act": gemm_bias_act,
-                "gru_cell": gru_cell, "gru_seq": gru_seq}
+                "gru_cell": gru_cell, "gru_seq": gru_seq,
+                "gemm_transpose": gemm_transpose, "gemm_reduce": gemm_reduce}
     phase_launches = {}
     failures = []
+    sms = device_sms(dev)
+
+    def launch_fields(a, b, tile, m, n, k):
+        """The launch a K1/K2 call makes at ``tile`` (``grid_blocks``: x
+        over N, y over M, z over the K slices) and what ptxas reported for
+        its main loop; records a failure where a bf16 GEMM missed the wgmma
+        route, or where fewer tiles than SMs did not split a K deep enough
+        for two slices."""
+        route = operand_route(a, b)
+        tile = tile or route.default_tile
+        ln = gemm_launch(m, n, k, a.dtype, tile, route, sms)
+        res = kernel_resources(ln.route, a.dtype, ln.tile) or {}
+        if a.dtype == torch.bfloat16 and ln.route != "wgmma":
+            failures.append(f"bf16 {m}x{n}x{k} took the {ln.route} route")
+        if ln.grid[0] * ln.grid[1] < sms and ln.split == 1 \
+                and -(-k // ln.tile[2]) >= 2 * MIN_SPLIT_STEPS:
+            failures.append(f"{m}x{n}x{k} {ln.tile}: {ln.grid} tiles on "
+                            f"{sms} SMs and no split")
+        return {"route": ln.route, "split": ln.split, "threads": ln.threads,
+                "smem_bytes": ln.smem_bytes,
+                "grid_blocks": [ln.grid[1], ln.grid[0], ln.split],
+                "registers": res.get("registers"),
+                "spill_bytes": res.get("spill_stores", 0)
+                + res.get("spill_loads", 0) if res else None}
 
     @contextlib.contextmanager
     def counted(phase: str, path: tuple[str, ...]):
@@ -285,6 +356,7 @@ def main() -> int:
         tile = c["cfg"].tile
         reps = 20
         kernel_ms = time_ms(lambda: gemm(a, b, tile=tile), reps)
+        dev_ms = device_ms(lambda: gemm(a, b, tile=tile), 5)
         plain_ms = time_ms(lambda: ref.gemm_ref(a, b), reps)
         library_ms = time_ms(lambda: torch.matmul(a, b), reps)
         bound_ms, bound_by = bound(a.element_size() * (m * k + k * n + m * n),
@@ -292,8 +364,9 @@ def main() -> int:
         emit({"phase": "gemm", "m": m, "n": n, "k": k,
               "dtype": dtype_name(dtype),
               "block": list(c["cfg"].block), "tile": list(tile),
-              "grid": list(c["cfg"].grid),
-              "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+              **launch_fields(a, b, tile, m, n, k),
+              "kernel_ms": kernel_ms, "device_ms": dev_ms,
+              "plain_ms": plain_ms,
               "library_ms": library_ms, "bound_ms": bound_ms,
               "bound_by": bound_by, "max_abs_err": err, "rtol": rtol,
               "atol": atol, "ok": ok})
@@ -310,6 +383,7 @@ def main() -> int:
         emit({"phase": "tuned_gemm", "m": m, "n": n, "k": k,
               "dtype": dtype_name(dtype), "tuned_block": list(tuned.block),
               "tuned_tile": list(tuned.tile), "plan_tile": list(tile),
+              **launch_fields(a, b, tuned.tile, m, n, k),
               "tuned_ms": (tuned_ms + tuned_ms2) / 2,
               "plan_ms": (plan_ms + plan_ms2) / 2,
               "max_abs_err": t_err, "ok": t_ok})
@@ -321,7 +395,8 @@ def main() -> int:
 
         # K2: every activation, at the tuned tile
         block = tuned_block(m, n, k)
-        k2_tile = block_tile(block) if block else None
+        k2_tile = route_tile(block, operand_route(a, b)) if block else None
+        k2_launch = launch_fields(a, b, k2_tile, m, n, k)
         pre_max = float((a.float() @ b.float() + bias).abs().max())
         lib_bias = bias.to(dtype)
         k2_bound = bound(a.element_size() * (m * k + k * n + m * n) + 4 * n,
@@ -341,7 +416,7 @@ def main() -> int:
                 lambda: act(torch.addmm(lib_bias, a, b)), reps)
             emit({"phase": "gemm_bias_act", "m": m, "n": n, "k": k,
                   "dtype": dtype_name(dtype), "fn": fn,
-                  "tile": list(k2_tile) if k2_tile else None,
+                  "tile": list(k2_tile) if k2_tile else None, **k2_launch,
                   "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                   "library_ms": library_ms,
                   "library": "torch.addmm" + (f" + torch.{fn}" if fn else ""),

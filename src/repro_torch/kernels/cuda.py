@@ -3,8 +3,9 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``.  The
 library is built at first use into ``build/repro_torch/`` at the repository
-root, under a file name keyed on a hash of its source and the compiler
-flags, so a changed source is rebuilt and an unchanged one is reused.
+root, under a file name keyed on a hash of its source, the headers it
+includes and the compiler flags, so a changed source or header is rebuilt
+and an unchanged one is reused.
 ``build_kernels`` starts one ``nvcc`` per source, all at once.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
@@ -15,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -53,9 +55,29 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every file it includes with quotes, directly
+    or through another such file, in the order first reached."""
+    todo, seen = [CSRC / f"{name}.cu"], []
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _LOCAL_INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    """Where the library built from ``csrc/<name>.cu`` lives: keyed on the
+    source, every header it includes (``source_files``) and the flags."""
+    h = hashlib.sha256()
+    for path in source_files(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -103,14 +125,46 @@ def library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build_kernels((name,))[name]))
 
 
+def ptxas_report(name: str) -> dict[str, dict[str, int]]:
+    """What ``-Xptxas -v`` said of each kernel of the library built from
+    ``csrc/<name>.cu``: mangled name -> registers (a count) and stack,
+    spill_stores, spill_loads (bytes).  Empty before the first build."""
+    log = library_path(name).with_suffix(".log")
+    return parse_ptxas(log.read_text()) if log.exists() else {}
+
+
+def parse_ptxas(text: str) -> dict[str, dict[str, int]]:
+    """Parse the ``-Xptxas -v`` report of one build (see ``ptxas_report``)."""
+    out: dict[str, dict[str, int]] = {}
+    cur = None
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            cur = out.setdefault(m.group(1), {})
+        elif cur is None:
+            continue
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                            r"stores, (\d+) bytes spill loads", line):
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        elif m := re.search(r"Used (\d+) registers", line):
+            cur["registers"] = int(m.group(1))
+    return out
+
+
 def check(status: int, kernel: str) -> None:
     """Raise unless a C entry point returned 0 (``cudaSuccess``)."""
     if status == -1:
         raise ValueError(f"{kernel}: the library has no such tile or dtype")
+    if status == -2:
+        raise RuntimeError(f"{kernel}: cuTensorMapEncodeTiled refused a TMA "
+                           "descriptor")
     if status != 0:
         raise RuntimeError(f"{kernel}: CUDA error {status} at launch")
 
 
 def stream_handle(device: torch.device) -> int:
-    """PyTorch's current stream on ``device`` as an integer handle."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current stream on ``device`` (a tensor's device, with its
+    index) as an integer handle, read without building a ``Stream``
+    object: K1's small shapes take less device time than one call's host
+    path."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -13,19 +13,21 @@ The GPU lowering (``pallas_gpu_gemm``) describes a thread-block *cluster*
 of ``GPU_SMS_PER_CLUSTER`` = 16 SMs: its block fills the cluster's shared
 memory (about 5.5x one block's 227 KB) and need not be a power of two.
 The bridge shares the cluster's tile out over its 16 SMs and rounds each
-share to the power of two the kernels are built for (``gemm.block_tile``).
+share to the power of two the kernels are built for (``gemm.route_tile``),
+on the main loop the dtype and K take (``gemm.gemm_route``).
 Mapping the cluster block onto a real thread-block cluster is later work.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 
 import torch
 
 from ..compile import CompileError, compile_gemm, compile_gru
 from ..core.sysgraph import GPU_SMS_PER_CLUSTER, SystemGraph
-from .gemm import (THREADS, block_tile, clamp_choice, gemm, gemm_bias_act,
-                   pow2_at_least, tuned_block, tuned_record)
+from .gemm import (Launch, Route, clamp_choice, gemm, gemm_bias_act,
+                   gemm_launch, gemm_route, operand_route, pow2_at_least,
+                   route_tile, tuned_block, tuned_record)
 from .gru import TILE_B, TILE_H, gru_cell, gru_seq
 
 #: the largest shared memory one block can use on Hopper
@@ -37,43 +39,36 @@ def _cdiv(a: int, b: int) -> int:
 
 
 @dataclass(frozen=True)
-class LaunchConfig:
-    """One K1 launch derived from a ``pallas_gpu_gemm`` lowering."""
+class LaunchConfig(Launch):
+    """One K1 launch derived from a ``pallas_gpu_gemm`` lowering: the
+    compiler's (cluster) block (bm, bn, bk) and the launch it maps to."""
 
-    block: tuple[int, int, int]   # the compiler's (cluster) block (bm, bn, bk)
-    tile: tuple[int, int, int]    # one CUDA block's tile (BM, BN, BK)
-    threads: int
-    grid: tuple[int, int]         # CUDA blocks over (M, N) covering the plan
-    smem_bytes: int               # one block's panels, for the dtype
+    block: tuple[int, int, int]
 
 
-def gemm_smem_bytes(tile: tuple[int, int, int], dtype: torch.dtype) -> int:
-    """Shared memory of one K1 block: the (BM, BK + pad) A panel and the
-    (BK, BN) B panel in the input type (``csrc/gemm.cu``)."""
-    bm, bn, bk = tile
-    esize = dtype.itemsize
-    return esize * (bm * (bk + 4 // esize) + bk * bn)
+def launch_config(lowering: dict, dtype: torch.dtype,
+                  shape: tuple[int, int, int] | None = None,
+                  route: Route | None = None) -> LaunchConfig:
+    """Map the compiler's cluster block to one CUDA block's launch.
 
-
-def launch_config(lowering: dict, dtype: torch.dtype) -> LaunchConfig:
-    """Map the compiler's cluster block to one CUDA block's tile
-    (``gemm.block_tile``: a 4 x 4 share of the cluster's output block, each
-    dim rounded up to a power of two and clamped to the built tiles).  So
-    every tile dim is a power of two, at least 16 and at most max(16, the
-    block dim rounded up to a power of two); shared memory is recomputed for
-    ``dtype``; the grid covers the block x grid region of the lowering,
-    hence M x N."""
+    ``shape`` is the (m, n, k) problem (default: the region the lowering's
+    block x grid covers) and ``route`` the main loop (default:
+    ``gemm_route(dtype, k)``).  The tile is ``gemm.route_tile`` of the
+    block: a 4 x 4 share of the cluster's output block, each dim rounded up
+    to a power of two and clamped to the route's built tiles.  Threads,
+    shared memory (``Route.smem_bytes``), the grid over the problem and the
+    split-K slices (``gemm.split_k`` on an H100's SMs) follow the kernel."""
     if lowering.get("kind") != "pallas_gpu_gemm":
         raise CompileError(f"not a GPU GEMM lowering: {lowering!r}")
-    bm, bn, bk = (int(v) for v in lowering["block"])
-    gm, gn, _ = (int(v) for v in lowering["grid"])
-    tile = block_tile((bm, bn, bk))
-    smem = gemm_smem_bytes(tile, dtype)
-    if smem > MAX_SMEM_BYTES:
-        raise CompileError(f"tile {tile} needs {smem} B of shared memory")
-    grid = (_cdiv(gm * bm, tile[0]), _cdiv(gn * bn, tile[1]))
-    return LaunchConfig(block=(bm, bn, bk), tile=tile, threads=THREADS,
-                        grid=grid, smem_bytes=smem)
+    block = tuple(int(v) for v in lowering["block"])
+    m, n, k = shape or tuple(int(g) * b for g, b in
+                             zip(lowering["grid"], block))
+    route = route or gemm_route(dtype, k)
+    launch = gemm_launch(m, n, k, dtype, route_tile(block, route), route)
+    if launch.smem_bytes > MAX_SMEM_BYTES:
+        raise CompileError(f"tile {launch.tile} needs {launch.smem_bytes} B "
+                           f"of shared memory")
+    return LaunchConfig(block=block, **asdict(launch))
 
 
 def gru_tile(block: tuple[int, int]) -> tuple[int, int]:
@@ -90,10 +85,11 @@ def gru_tile(block: tuple[int, int]) -> tuple[int, int]:
 
 def plan_gemm(m: int, n: int, k: int, dtype: torch.dtype = torch.float32,
               approach: str = "greedy", graph: SystemGraph | None = None,
-              use_cache: bool = True) -> tuple[LaunchConfig, float]:
+              use_cache: bool = True, route: Route | None = None
+              ) -> tuple[LaunchConfig, float]:
     """Compile an (m, n, k) GEMM against ``graph`` (default ``gpu_sm(8)``)
-    through ``repro_torch.compile``; return (its K1 launch, modeled
-    seconds).
+    through ``repro_torch.compile``; return (its K1 launch on ``route``,
+    default ``gemm_route(dtype, k)``, and the modeled seconds).
 
     With ``use_cache`` (default), a record of the port's tuning cache for
     the shape short-circuits planning: its block (a ``measure`` record's
@@ -106,10 +102,10 @@ def plan_gemm(m: int, n: int, k: int, dtype: torch.dtype = torch.float32,
         block = clamp_tile(rec.tile, m, n, k)
         lowering = {"kind": "pallas_gpu_gemm", "block": list(block),
                     "grid": [_cdiv(e, b) for e, b in zip((m, n, k), block)]}
-        return launch_config(lowering, dtype), rec.cost
+        return launch_config(lowering, dtype, (m, n, k), route), rec.cost
     art = compile_gemm(m, n, k, approach=approach, graph=graph,
                        use_cache=use_cache)
-    return launch_config(art.lowering, dtype), art.cost
+    return launch_config(art.lowering, dtype, (m, n, k), route), art.cost
 
 
 def plan_gru(batch: int, hidden: int, inp: int | None = None,
@@ -138,7 +134,8 @@ def scheduled_gemm(a: torch.Tensor, b: torch.Tensor,
     product and the launch (compiler block and CUDA tile)."""
     m, k = a.shape
     _, n = b.shape
-    cfg, _ = plan_gemm(m, n, k, dtype=a.dtype, graph=graph)
+    cfg, _ = plan_gemm(m, n, k, dtype=a.dtype, graph=graph,
+                       route=operand_route(a, b))
     return gemm(a, b, tile=cfg.tile), cfg
 
 

@@ -30,6 +30,30 @@ def gemm_bias_act_ref(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
     return ACTIVATIONS[fn](a.float() @ b.float() + bias.float()).to(a.dtype)
 
 
+def k_slices(k: int, bk: int, split: int) -> list[tuple[int, int]]:
+    """The K ranges [kb, ke) of a split-K launch: slice z covers the depth-bk
+    steps [z * steps // split, (z + 1) * steps // split) of the ceil(k / bk)
+    steps (``csrc/gemm.cu::k_slice``)."""
+    steps = -(-k // bk)
+    return [(z * steps // split * bk, min(k, (z + 1) * steps // split * bk))
+            for z in range(split)]
+
+
+def gemm_bias_act_split_ref(a: torch.Tensor, b: torch.Tensor,
+                            bias: torch.Tensor | None, fn: str, bk: int,
+                            split: int) -> torch.Tensor:
+    """K1/K2 as a split-K launch computes them: the f32 products of the K
+    slices, summed in slice order, then the bias (``None``: K1), the
+    activation and one rounding to the input type."""
+    a32, b32 = a.float(), b.float()
+    acc = torch.zeros((a.shape[0], b.shape[1]), device=a.device)
+    for kb, ke in k_slices(a.shape[1], bk, split):
+        acc = acc + a32[:, kb:ke] @ b32[kb:ke]
+    if bias is not None:
+        acc = acc + bias.float()
+    return ACTIVATIONS[fn](acc).to(a.dtype)
+
+
 def gru_cell_ref(x: torch.Tensor, h: torch.Tensor, params: dict
                  ) -> torch.Tensor:
     """r/z/n-gate GRU step (same convention as core.kernels_ir.gru_cell)."""

@@ -259,7 +259,8 @@ class MeasuredGemmEvaluator:
         return gemm_tile_for(config, self.graph, self.m, self.n, self.k)
 
     def tile_for(self, config: Config) -> tuple[int, int, int]:
-        """The CUDA tile K1 is launched with for the candidate."""
+        """The CUDA tile K1 is launched with for the candidate (f32: the
+        simt route)."""
         from ..kernels.gemm import block_tile
         return block_tile(self.block_for(config))
 

@@ -5,16 +5,16 @@ JAX, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
-import itertools
-
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.sysgraph import gpu_sm
 from repro_torch.kernels import ref
-from repro_torch.kernels.gemm import (ACTS, DEFAULT_TILE, TILE_K, TILE_MN,
-                                      block_tile, gemm, gemm_bias_act)
+from repro_torch.kernels.gemm import (ACTS, block_tile, device_sms, gemm,
+                                      gemm_bias_act, gemm_launch, gemm_route,
+                                      gemm_reduce, gemm_transpose,
+                                      operand_route)
 from repro_torch.kernels.gru import PARAM_NAMES, FusedGRU, gru_cell, gru_seq
 from repro_torch.kernels.ops import scheduled_gemm, scheduled_gru
 from repro_torch.search.evaluate import MeasuredGemmEvaluator
@@ -49,58 +49,131 @@ def cuda_device():
     return torch.device("cuda")
 
 
+#: tiles tried per route: small ones, whose many blocks need no split-K,
+#: and large ones, which split K on the narrow shapes
+ROUTE_TILES = {
+    "simt": [(16, 16, 32), (64, 64, 32), (128, 128, 32), (16, 128, 32),
+             (128, 16, 32)],
+    "wgmma": [(64, 16, 64), (64, 64, 64), (128, 128, 64), (64, 256, 64),
+              (128, 256, 64)],
+}
+CARD_SHAPES = [(130, 70, 190), (1, 128, 512), (512, 1, 64), (35, 700, 2048),
+               (5124, 700, 2048), (7680, 1, 2560)]
+
+
+def counts():
+    return (gemm.launches, gemm_bias_act.launches, gemm_transpose.launches,
+            gemm_reduce.launches)
+
+
+def expected_launch(a, b, tile):
+    """The launch a call makes, and the counts it adds: (gemm-or-K2,
+    transposing passes, split-K reduces)."""
+    m, k = a.shape
+    launch = gemm_launch(m, b.shape[1], k, a.dtype, tile,
+                         operand_route(a, b), device_sms(a.device))
+    return launch, (launch.route == "wgmma", launch.split > 1)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
 def test_gemm_kernel_on_card(cuda_device, tdt):
     tol = TOL[tdt]
     rng = np.random.default_rng(3)
-    before = gemm.launches
-    tiles = [(16, 16, 16), DEFAULT_TILE, (128, 128, 32), (16, 128, 16)]
-    for m, n, k in [(130, 70, 190), (1, 128, 512), (512, 1, 64),
-                    (35, 700, 2048)]:
+    splits = set()
+    for m, n, k in CARD_SHAPES:
         a = to_torch(rand(rng, (m, k)), tdt, cuda_device)
         b = to_torch(rand(rng, (k, n)), tdt, cuda_device)
         want = ref.gemm_ref(a, b)
         # f32: sums in another order than cuBLAS, error scales with |C|
         scale = float(want.abs().max()) if tdt == torch.float32 else 1.0
-        for tile in tiles:
+        route = operand_route(a, b)
+        assert route is gemm_route(tdt, k)
+        assert route.name == ("wgmma" if tdt == torch.bfloat16
+                              and k % 8 == 0 else "simt")
+        for tile in ROUTE_TILES[route.name]:
+            launch, (t, r) = expected_launch(a, b, tile)
+            splits.add(launch.split > 1)
+            before = counts()
             got = gemm(a, b, tile=tile)
             torch.cuda.synchronize()
+            assert counts() == (before[0] + 1, before[1], before[2] + t,
+                                before[3] + r)
             np.testing.assert_allclose(
                 as_f32(got), as_f32(want), rtol=tol["rtol"],
-                atol=tol["atol"] * scale)
-    assert gemm.launches == before + 4 * len(tiles)
+                atol=tol["atol"] * scale, err_msg=f"{(m, n, k)} {launch}")
+    assert splits == {False, True}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
 def test_gemm_bias_act_kernel_on_card(cuda_device, tdt):
-    """K2 against its plain version: every activation at every built tile,
-    on a ragged shape, with the bias in f32 and in the input type."""
+    """K2 against its plain version: every activation at every built tile of
+    the route, on ragged shapes with and without split-K, with the bias in
+    f32 and in the input type."""
     tol = TOL[tdt]
     rng = np.random.default_rng(6)
-    m, n, k = 130, 70, 190
-    a = to_torch(rand(rng, (m, k)), tdt, cuda_device)
-    b = to_torch(rand(rng, (k, n)), tdt, cuda_device)
-    bias = to_torch(rand(rng, (n,)), device=cuda_device)
-    scale = float((a.float() @ b.float() + bias).abs().max()) \
-        if tdt == torch.float32 else 1.0
-    tiles = list(itertools.product(TILE_MN, TILE_MN, TILE_K))
-    before = gemm_bias_act.launches
-    for fn in ACTS:
-        want = ref.gemm_bias_act_ref(a, b, bias, fn)
-        for tile in tiles:
-            got = gemm_bias_act(a, b, bias, fn, tile=tile)
-            torch.cuda.synchronize()
+    for m, n, k in [(130, 70, 190), (200, 136, 256), (35, 700, 2048)]:
+        a = to_torch(rand(rng, (m, k)), tdt, cuda_device)
+        b = to_torch(rand(rng, (k, n)), tdt, cuda_device)
+        bias = to_torch(rand(rng, (n,)), device=cuda_device)
+        scale = float((a.float() @ b.float() + bias).abs().max()) \
+            if tdt == torch.float32 else 1.0
+        route = operand_route(a, b)
+        for fn in ACTS:
+            want = ref.gemm_bias_act_ref(a, b, bias, fn)
+            for tile in route.tiles():
+                _, (t, r) = expected_launch(a, b, tile)
+                before = counts()
+                got = gemm_bias_act(a, b, bias, fn, tile=tile)
+                torch.cuda.synchronize()
+                assert counts() == (before[0], before[1] + 1, before[2] + t,
+                                    before[3] + r)
+                np.testing.assert_allclose(
+                    as_f32(got), as_f32(want), rtol=tol["rtol"],
+                    atol=tol["atol"] * scale, err_msg=f"{fn!r} {tile}")
+            got = gemm_bias_act(a, b, bias.to(tdt), fn)
             np.testing.assert_allclose(
-                as_f32(got), as_f32(want), rtol=tol["rtol"],
-                atol=tol["atol"] * scale, err_msg=f"{fn!r} {tile}")
-        got = gemm_bias_act(a, b, bias.to(tdt), fn)
-        np.testing.assert_allclose(
-            as_f32(got),
-            as_f32(ref.gemm_bias_act_ref(a, b, bias.to(tdt), fn)),
-            rtol=tol["rtol"], atol=tol["atol"] * scale)
-    assert gemm_bias_act.launches == before + len(ACTS) * (len(tiles) + 1)
+                as_f32(got),
+                as_f32(ref.gemm_bias_act_ref(a, b, bias.to(tdt), fn)),
+                rtol=tol["rtol"], atol=tol["atol"] * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+def test_gemm_integer_inputs_bit_exact_on_card(cuda_device, tdt):
+    """Integer inputs in [-4, 4] with K <= 256 make every f32 sum exact, so
+    K1 and K2 (relu, integer bias) must equal the plain version bit for bit
+    on both routes, split or not: a swizzle, descriptor, fragment-map or
+    slice error shows as an exact mismatch, not as noise."""
+    rng = np.random.default_rng(8)
+    routes = set()
+    for m, n, k in [(130, 70, 256), (130, 70, 250), (64, 24, 64),
+                    (300, 200, 248)]:
+        a = to_torch(rng.integers(-4, 5, (m, k)).astype(np.float32), tdt,
+                     cuda_device)
+        b = to_torch(rng.integers(-4, 5, (k, n)).astype(np.float32), tdt,
+                     cuda_device)
+        bias = to_torch(rng.integers(-4, 5, (n,)).astype(np.float32),
+                        device=cuda_device)
+        # bf16 rows at an odd element offset: 2-byte aligned, so the simt
+        # route even where K % 8 == 0
+        a_odd = torch.empty(m * k + 1, dtype=tdt,
+                            device=cuda_device)[1:].view(m, k)
+        a_odd.copy_(a)
+        for x in (a, a_odd):
+            route = operand_route(x, b)
+            routes.add(route.name)
+            for tile in ROUTE_TILES[route.name]:
+                np.testing.assert_array_equal(
+                    as_f32(gemm(x, b, tile=tile)), as_f32(ref.gemm_ref(x, b)),
+                    err_msg=f"{route.name} {(m, n, k)} {tile}")
+                np.testing.assert_array_equal(
+                    as_f32(gemm_bias_act(x, b, bias, "relu", tile=tile)),
+                    as_f32(ref.gemm_bias_act_ref(x, b, bias, "relu")),
+                    err_msg=f"K2 {route.name} {(m, n, k)} {tile}")
+    assert routes == ({"simt", "wgmma"} if tdt == torch.bfloat16
+                      else {"simt"})
 
 
 @pytest.mark.gpu

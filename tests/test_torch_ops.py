@@ -8,7 +8,8 @@ from repro.search.tune import DEEPBENCH_GEMM_SIZES
 from repro_torch.compile import CompileError, compile_gemm
 from repro_torch.core.sysgraph import gpu_sm
 from repro_torch.kernels import cuda
-from repro_torch.kernels.gemm import THREADS, gemm, gemm_bias_act
+from repro_torch.kernels.gemm import (ROUTES, gemm, gemm_bias_act,
+                                      gemm_route, split_k)
 from repro_torch.kernels.gru import (PARAM_NAMES, TILE_B, TILE_H, FusedGRU,
                                      gru_cell, gru_seq)
 from repro_torch.kernels.ops import (MAX_SMEM_BYTES, gru_tile, launch_config,
@@ -31,17 +32,19 @@ def sweep_lowering(block):
             "grid": [-(-e // b) for e, b in zip((m, n, k), blk)]}
 
 
-def assert_launchable(cfg, lowering, m, n, dtype):
-    for dim, blk in zip(cfg.tile, lowering["block"]):
-        assert dim >= 16 and dim & (dim - 1) == 0, cfg
-        assert dim <= max(16, pow2_ceil(blk)), cfg
+def assert_launchable(cfg, lowering, m, n, dtype, k=None):
+    route = ROUTES[cfg.route]
+    assert route is gemm_route(dtype, k)
+    built = (route.tile_m, route.tile_n, route.tile_k)
+    for dim, blk, dims in zip(cfg.tile, lowering["block"], built):
+        assert dim in dims and dim & (dim - 1) == 0, cfg
+        assert dim <= max(dims[0], pow2_ceil(blk)), cfg
     assert cfg.block == tuple(lowering["block"])
-    esize = dtype.itemsize
-    bm, bn, bk = cfg.tile
-    assert cfg.smem_bytes == esize * (bm * (bk + 4 // esize) + bk * bn)
+    assert cfg.smem_bytes == route.smem_bytes(cfg.tile, dtype)
     assert cfg.smem_bytes <= MAX_SMEM_BYTES
-    assert cfg.threads == THREADS
-    assert cfg.grid[0] * bm >= m and cfg.grid[1] * bn >= n
+    assert cfg.threads == route.threads(cfg.tile)
+    assert cfg.grid[0] * cfg.tile[0] >= m and cfg.grid[1] * cfg.tile[1] >= n
+    assert cfg.split >= 1
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -51,8 +54,9 @@ def test_launch_config_deepbench(m, n, k, dtype):
     # the cluster-sized block the bridge exists for: several times one
     # block's shared memory, and not a power of two
     assert low["smem_bytes"] > MAX_SMEM_BYTES
-    cfg = launch_config(low, dtype)
-    assert_launchable(cfg, low, m, n, dtype)
+    cfg = launch_config(low, dtype, (m, n, k))
+    assert_launchable(cfg, low, m, n, dtype, k)
+    assert cfg.split == split_k(m, n, k, cfg.tile)
     assert plan_gemm(m, n, k, dtype=dtype)[0] == cfg
 
 

@@ -32,7 +32,7 @@ from repro_torch.core.executor import execute
 from repro_torch.core.ir import random_inputs
 from repro_torch.core.sysgraph import gpu_sm
 from repro_torch.kernels import gemm as gemm_mod
-from repro_torch.kernels.gemm import (DEFAULT_TILE, block_tile, gemm,
+from repro_torch.kernels.gemm import (SIMT, block_tile, gemm,
                                       gemm_bias_act, tuned_block)
 from repro_torch.kernels.ops import plan_gemm
 from repro_torch.search import cache as cache_mod
@@ -214,9 +214,9 @@ def tile_spy(monkeypatch):
     seen = []
     check = gemm_mod._check_tile
 
-    def spy(tile):
+    def spy(tile, route):
         seen.append(tuple(tile))
-        return check(tile)
+        return check(tile, route)
     monkeypatch.setattr(gemm_mod, "_check_tile", spy)
     return seen
 
@@ -248,7 +248,7 @@ def test_kernels_take_the_cached_block(default_cache, tile_spy):
     tile_spy.clear()
     assert tuned_block(m + 1, n, k) is None
     gemm(a[:7], b)
-    assert tile_spy == [DEFAULT_TILE]
+    assert tile_spy == [SIMT.default_tile]
 
 
 def test_tuned_slice_matches_jax_package(default_cache, tmp_path):
