@@ -15,8 +15,13 @@ launch the hand-written CUDA kernels with the plan.
 
    * ``plan`` — with an empty tuning cache as the default, so the tile is
      the compiler's: the 8 DeepBench GEMMs (paper Fig. 3) in f32 and in
-     bf16 through ``scheduled_gemm`` (K1), then the 4 DeepBench GRU sizes
-     (paper Fig. 4; E = H, T = 128) through ``FusedGRU`` (K4 over K3);
+     bf16 through ``scheduled_gemm`` (K1), then for each of the 4
+     DeepBench GRU sizes (paper Fig. 4; E = H, T = 128) one K3 step at the
+     tile of the compiler's GRU plan (``gru_cell`` at ``gru_tile``) and
+     the sequence through ``FusedGRU`` (K4: K2 projects the input of all
+     128 steps at ``plan_gemm``'s tile, then one persistent kernel runs
+     the recurrence); each sequence must launch exactly one K2 and one
+     persistent kernel, and no K3;
    * ``tune`` — the port's tuner (``python -m repro_torch.search.tune
      --suite gemm --backend measure --target gpu_sm --trials 8``) on the 8
      GEMMs, K1 timed on the card, into a fresh cache file under
@@ -30,7 +35,7 @@ launch the hand-written CUDA kernels with the plan.
    after one transposing pass of B; ``simt``: f32), with split-K where the
    tiles are fewer than the SMs; the ``launches`` lines also count the
    transposing passes (``gemm_transpose``) and split-K reduces
-   (``gemm_reduce``).
+   (``gemm_reduce``), and K3's split-step reduces (``gru_cell_reduce``).
 
 4. Holds each output against the plain PyTorch version on the same inputs,
    and times the kernel (its whole launch sequence), the plain version and
@@ -42,12 +47,21 @@ launch the hand-written CUDA kernels with the plan.
    kernel of K1's launch sequence (transposing pass, main loop, reduce)
    from a ``torch.profiler`` trace of 5 calls (``device_ms``).  The
    ``tuned_gemm`` lines time K1 at the tuned tile beside K1 at the plan
-   tile.
+   tile.  The ``gru`` lines give, per size: K3's split, grid and copy
+   route; K4's launches per sequence, its projection's tile and the
+   persistent launch (blocks, columns a block, k-lanes, dynamic shared
+   memory, rows and bytes of U kept in shared memory); registers and
+   spills of both kernels; and device time by kernel from a profiler trace
+   (``step_device_ms``: K3's step and reduce; ``seq_device_ms``: K4's
+   projection, recurrence and the rest: packing copies and a memset).
 5. Prints the ``kernels`` line and, last, the device line.  Exits non-zero,
    before the device line, when a comparison fails, a kernel of a phase was
    never launched in it, a bf16 DeepBench GEMM did not take the wgmma route
-   or a launch with fewer tiles than SMs did not split K, or the tuner
-   failed or wrote fewer than 8 ``measure`` records; when there is no card
+   or a launch with fewer tiles than SMs did not split K, a K3 step at a
+   DeepBench size launched fewer blocks than the card has SMs, a K4
+   sequence launched other than one K2 and one persistent kernel, or the
+   tuner failed or wrote fewer than 8 ``measure`` records; when there is
+   no card
    it prints nothing and exits 1.
 
 Inputs: uniform(-1, 1) from ``np.random.default_rng(seed)``; the GRU
@@ -73,6 +87,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -89,6 +104,7 @@ GEMM_SIZES = [(1024, 128, 1024), (2048, 64, 2048), (1760, 128, 1760),
               (35, 700, 2048), (7680, 1, 2560)]
 GRU_SIZES = [(32, 512), (32, 1024), (16, 1536), (32, 1792)]
 STEPS = 128
+SHORT_STEPS = 2        # a sequence too short for an error to fade from h
 ACTS = ("", "sigmoid", "tanh", "relu")
 TUNE_TRIALS = 8
 GEMM_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
@@ -122,24 +138,43 @@ SEQUENCE_KERNELS = {"transpose": ("transpose_kernel",),
                     "reduce": ("reduce_kernel",)}
 
 
-def device_ms(fn, reps: int) -> dict | None:
-    """Device time per call of each kernel of a K1/K2 launch sequence
-    (``SEQUENCE_KERNELS``), from a ``torch.profiler`` trace of ``reps``
-    calls after a warm-up; ``None`` when the trace holds no device time."""
+#: K3's kernels and K4's (projection: K2's main loop and split-K reduce;
+#: the persistent recurrence); "other" in K4's is the rest of its device
+#: time: the packing copies and the barrier counter's memset
+STEP_KERNELS = {"step": ("gru_step_kernel",), "reduce": ("gru_sum_kernel",)}
+SEQ_KERNELS = {"projection": ("simt_kernel", "wgmma_kernel", "reduce_kernel"),
+               "recurrence": ("gru_seq_kernel",)}
+
+
+def device_ms(fn, reps: int, parts=None, main: str = "main",
+              other: bool = False) -> dict | None:
+    """Device time per call of each kernel of a launch sequence (``parts``,
+    by default K1/K2's ``SEQUENCE_KERNELS``), from a ``torch.profiler``
+    trace of ``reps`` calls after a warm-up; with ``other``, the device
+    time of every other kernel, copy and memset in the trace too.  ``None``
+    when the trace holds no device time for ``main``."""
     from torch.profiler import ProfilerActivity, profile
+    parts = parts or SEQUENCE_KERNELS
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out = dict.fromkeys(SEQUENCE_KERNELS, 0.0)
+    out = dict.fromkeys(parts, 0.0)
+    rest = 0.0
     for ev in prof.key_averages():
-        for part, names in SEQUENCE_KERNELS.items():
-            if any(nm in ev.key for nm in names):
-                out[part] += ev.self_device_time_total / 1e3 / reps
-    if not out["main"]:
+        ms = ev.self_device_time_total / 1e3 / reps
+        hit = [part for part, names in parts.items()
+               if any(nm in ev.key for nm in names)]
+        if hit:
+            out[hit[0]] += ms
+        else:
+            rest += ms
+    if not out[main]:
         return None
+    if other:
+        out["other"] = rest
     out["sum"] = sum(out.values())
     return out
 
@@ -199,8 +234,12 @@ def main() -> int:
                                           gemm_transpose, kernel_resources,
                                           operand_route, route_tile,
                                           tuned_block)
-    from repro_torch.kernels.gru import FusedGRU, PARAM_NAMES, gru_cell, gru_seq
-    from repro_torch.kernels.ops import gru_tile, plan_gru, scheduled_gemm
+    from repro_torch.kernels.gru import (STEP_KC, FusedGRU, PARAM_NAMES,
+                                         device_smem, device_split, gru_cell,
+                                         gru_cell_reduce, gru_seq,
+                                         gru_seq_launch, pack_w, step_route)
+    from repro_torch.kernels.ops import (gru_tile, plan_gemm, plan_gru,
+                                         scheduled_gemm)
     from repro_torch.search import tune
     from repro_torch.search.cache import TuningCache, set_default_cache
 
@@ -241,8 +280,9 @@ def main() -> int:
     torch.cuda.synchronize()
 
     counters = {"gemm": gemm, "gemm_bias_act": gemm_bias_act,
-                "gru_cell": gru_cell, "gru_seq": gru_seq,
-                "gemm_transpose": gemm_transpose, "gemm_reduce": gemm_reduce}
+                "gru_cell": gru_cell, "gru_cell_reduce": gru_cell_reduce,
+                "gru_seq": gru_seq, "gemm_transpose": gemm_transpose,
+                "gemm_reduce": gemm_reduce}
     phase_launches = {}
     failures = []
     sms = device_sms(dev)
@@ -289,11 +329,27 @@ def main() -> int:
     os.makedirs(cuda.BUILD_DIR, exist_ok=True)
     empty = cuda.BUILD_DIR / f"tuning-empty-{os.getpid()}.json"
     set_default_cache(TuningCache(str(empty)))
-    with counted("plan", ("gemm", "gru_cell", "gru_seq")):
+    def snapshot():
+        return {name: c.launches for name, c in counters.items()}
+
+    with counted("plan", ("gemm", "gemm_bias_act", "gru_cell",
+                          "gru_cell_reduce", "gru_seq")):
         for c in gemm_cases:
             c["out"], c["cfg"] = scheduled_gemm(c["a"], c["b"], graph=graph)
         for c in gru_cases:
+            batch, hidden = c["bh"]
+            c["block"], _ = plan_gru(batch, hidden, hidden, graph=graph)
+            c["tile"] = gru_tile(c["block"])
+            c["step_out"] = gru_cell(c["xs"][0], c["h0"], c["model"].params(),
+                                     tile=c["tile"])
+            before = snapshot()
             c["out"] = c["model"](c["xs"], c["h0"])
+            c["seq_launches"] = {n: v - before[n]
+                                 for n, v in snapshot().items() if v > before[n]}
+            if c["seq_launches"] != {"gemm_bias_act": 1, "gru_seq": 1}:
+                failures.append(f"gru {batch}x{hidden}: a sequence launched "
+                                f"{c['seq_launches']}, not one K2 projection "
+                                "and one persistent kernel")
 
     # ---- main path, phase tune: K1 measured into a fresh cache -----------
     cache_path = cuda.BUILD_DIR / f"tuning-{os.getpid()}-{time.time_ns()}.json"
@@ -430,17 +486,71 @@ def main() -> int:
                 failures.append(f"gemm_bias_act {m}x{n}x{k} {dtype} {fn!r}: "
                                 f"max err {err}")
 
+    def gru_resources(pattern: str) -> dict | None:
+        """Registers and spill bytes ``-Xptxas -v`` reported for the GRU
+        kernel whose mangled name matches ``pattern``."""
+        found = [v for name, v in cuda.ptxas_report("gru").items()
+                 if re.search(pattern, name)]
+        if not found:
+            return None
+        return {"registers": found[0].get("registers"),
+                "spill_bytes": found[0].get("spill_stores", 0)
+                + found[0].get("spill_loads", 0)}
+
+    smem_limit = device_smem(dev)
     k3, k4 = [], []
     for c in gru_cases:
         (batch, hidden), xs, h0 = c["bh"], c["xs"], c["h0"]
         inp = hidden
         params = c["model"].params()
-        block, _ = plan_gru(batch, hidden, inp, graph=graph)
-        tile = gru_tile(block)
+        block, tile = c["block"], c["tile"]
         want = ref.gru_seq_ref(xs, h0, params)
         err, ok = mismatch(c["out"], want, *GRU_TOL)
         if not ok:
             failures.append(f"gru {batch}x{hidden}: max err {err}")
+        x0 = xs[0]
+        step_err, step_ok = mismatch(c["step_out"],
+                                     ref.gru_cell_ref(x0, h0, params),
+                                     *CELL_TOL)
+        if not step_ok:
+            failures.append(f"gru_cell {batch}x{hidden}: max err {step_err}")
+        # K3's launch: the split, and blocks = tiles x slices
+        route = step_route(inp, hidden)
+        split = device_split(batch, inp, hidden, tile, dev, route)
+        step_blocks = -(-hidden // tile[1]) * -(-batch // tile[0]) * split
+        if step_blocks < sms:
+            failures.append(f"gru_cell {batch}x{hidden}: {step_blocks} blocks "
+                            f"on {sms} SMs")
+        step_res = gru_resources(
+            rf"gru_step_kernelILi{tile[0]}ELi{tile[1]}ELb"
+            f"{int(route == 'vec4')}E")
+        # K4's launches: the projection's tile and the persistent partition
+        proj_cfg, _ = plan_gemm(STEPS * batch, 3 * hidden, inp, graph=graph)
+        seq_launch = gru_seq_launch(batch, inp, hidden, sms, smem_limit)
+        seq_res = gru_resources(
+            rf"gru_seq_kernelILb{int(hidden % 4 == 0)}E")
+        # K2 at the projection's shape, held against its plain version at
+        # K2's f32 tolerance: G's early rows fade from h_T, so the sequence's
+        # check alone would not see a fault there
+        x2d = xs.view(STEPS * batch, inp)
+        w_cat, b_cat = pack_w(params)
+        proj_want = ref.gemm_bias_act_ref(x2d, w_cat, b_cat, "")
+        proj_rtol, proj_atol = GEMM_TOL[torch.float32]
+        proj_atol *= float(proj_want.abs().max())
+        proj_err, proj_ok = mismatch(
+            gemm_bias_act(x2d, w_cat, b_cat, "", tile=proj_cfg.tile),
+            proj_want, proj_rtol, proj_atol)
+        if not proj_ok:
+            failures.append(f"gru {batch}x{hidden}: projection "
+                            f"{STEPS * batch}x{3 * hidden}x{inp} max err "
+                            f"{proj_err}")
+        # a short sequence, where an error in the recurrence cannot fade
+        short_err, short_ok = mismatch(
+            gru_seq(xs[:SHORT_STEPS], h0, params, proj_tile=proj_cfg.tile),
+            ref.gru_seq_ref(xs[:SHORT_STEPS], h0, params), *GRU_TOL)
+        if not short_ok:
+            failures.append(f"gru {batch}x{hidden} T={SHORT_STEPS}: max err "
+                            f"{short_err}")
         # library: PyTorch's own GRU cell and cuDNN's GRU, gates (r, z, n)
         w_ih = torch.cat([params["Wr"], params["Wz"], params["Wn"]], 1).T
         w_hh = torch.cat([params["Ur"], params["Uz"], params["Un"]], 1).T
@@ -455,20 +565,22 @@ def main() -> int:
             lib_gru.bias_hh_l0.copy_(b_hh)
             lib_err = float((lib_gru(xs, h0[None])[1][0] - want).abs().max())
             w_ih, w_hh = w_ih.contiguous(), w_hh.contiguous()
-            x0, out = xs[0], torch.empty_like(h0)
-            step_err, step_ok = mismatch(
-                gru_cell(x0, h0, params, tile=tile, out=out),
-                ref.gru_cell_ref(x0, h0, params), *CELL_TOL)
-            if not step_ok:
-                failures.append(f"gru_cell {batch}x{hidden}: max err "
-                                f"{step_err}")
-            step_ms = time_ms(
-                lambda: gru_cell(x0, h0, params, tile=tile, out=out), 50)
+            out = torch.empty_like(h0)
+
+            def step():
+                return gru_cell(x0, h0, params, tile=tile, out=out)
+
+            def seq():
+                return gru_seq(xs, h0, params, proj_tile=proj_cfg.tile)
+
+            step_ms = time_ms(step, 50)
+            step_dev = device_ms(step, 10, STEP_KERNELS, "step")
             step_plain_ms = time_ms(
                 lambda: ref.gru_cell_ref(x0, h0, params), 50)
             step_lib_ms = time_ms(
                 lambda: torch.gru_cell(x0, h0, w_ih, w_hh, b_ih, b_hh), 50)
-            seq_ms = time_ms(lambda: gru_seq(xs, h0, params, tile=tile), 5)
+            seq_ms = time_ms(seq, 5)
+            seq_dev = device_ms(seq, 3, SEQ_KERNELS, "recurrence", other=True)
             seq_plain_ms = time_ms(lambda: ref.gru_seq_ref(xs, h0, params), 5)
             seq_lib_ms = time_ms(lambda: lib_gru(xs, h0[None]), 5)
         w_bytes = 4 * (3 * inp * hidden + 3 * hidden * hidden + 4 * hidden)
@@ -479,16 +591,36 @@ def main() -> int:
                           STEPS * step_flops, torch.float32)
         emit({"phase": "gru", "batch": batch, "hidden": hidden, "inp": inp,
               "steps": STEPS, "block": list(block), "tile": list(tile),
-              "step_ms": step_ms, "step_plain_ms": step_plain_ms,
+              "step_split": split, "step_grid_blocks": step_blocks,
+              "step_route": route, "step_kc": STEP_KC,
+              "step_resources": step_res,
+              "step_ms": step_ms, "step_device_ms": step_dev,
+              "step_plain_ms": step_plain_ms,
               "step_library_ms": step_lib_ms, "step_bound_ms": step_bound[0],
               "step_bound_by": step_bound[1],
-              "seq_ms": seq_ms, "seq_plain_ms": seq_plain_ms,
+              "seq_launches": c["seq_launches"],
+              "projection_tile": list(proj_cfg.tile),
+              "projection_split": proj_cfg.split,
+              "persistent": {
+                  "blocks": seq_launch.blocks, "cols": seq_launch.cols,
+                  "batch_rows": seq_launch.batch,
+                  "threads": seq_launch.threads, "lanes": seq_launch.lanes,
+                  "smem_bytes": seq_launch.smem_bytes,
+                  "u_rows_on_chip": seq_launch.rows_on_chip,
+                  "u_bytes_on_chip": seq_launch.u_bytes_on_chip,
+                  "u_bytes": seq_launch.u_bytes},
+              "seq_resources": seq_res,
+              "seq_ms": seq_ms, "seq_device_ms": seq_dev,
+              "seq_plain_ms": seq_plain_ms,
               "seq_library_ms": seq_lib_ms, "seq_bound_ms": seq_bound[0],
               "seq_bound_by": seq_bound[1],
               "steps_x_step_bound_ms": STEPS * step_bound[0],
               "step_max_abs_err": step_err, "max_abs_err": err,
+              "projection_max_abs_err": proj_err,
+              "projection_rtol": proj_rtol, "projection_atol": proj_atol,
+              "short_steps": SHORT_STEPS, "short_max_abs_err": short_err,
               "library_max_abs_err": lib_err, "rtol": GRU_TOL[0],
-              "atol": GRU_TOL[1], "ok": ok and step_ok})
+              "atol": GRU_TOL[1], "ok": ok and step_ok and proj_ok and short_ok})
         k3.append({"ms": step_ms, "plain_ms": step_plain_ms,
                    "library_ms": step_lib_ms, "bound": step_bound,
                    "err": step_err})
@@ -504,7 +636,7 @@ def main() -> int:
               "src/repro/kernels/gemm.py:157", launches["gemm_bias_act"], k2),
         entry("gru_cell", "src/repro_torch/csrc/gru.cu",
               "src/repro/kernels/gru.py:83", launches["gru_cell"], k3),
-        entry("gru_seq", "src/repro_torch/kernels/gru.py",
+        entry("gru_seq", "src/repro_torch/csrc/gru.cu",
               "src/repro/kernels/gru.py:105", launches["gru_seq"], k4),
     ]
     emit({"clocks_power": nvidia_smi(

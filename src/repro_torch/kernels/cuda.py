@@ -26,6 +26,10 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("gemm", "gru")
+#: the largest shared memory one block can use on Hopper
+MAX_SMEM_BYTES = 232_448
+#: cudaErrorCooperativeLaunchTooLarge: a grid that cannot be co-resident
+COOPERATIVE_TOO_LARGE = 720
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -154,10 +158,14 @@ def parse_ptxas(text: str) -> dict[str, dict[str, int]]:
 def check(status: int, kernel: str) -> None:
     """Raise unless a C entry point returned 0 (``cudaSuccess``)."""
     if status == -1:
-        raise ValueError(f"{kernel}: the library has no such tile or dtype")
+        raise ValueError(f"{kernel}: the library has no kernel for these "
+                         "arguments (tile, dtype or launch)")
     if status == -2:
         raise RuntimeError(f"{kernel}: cuTensorMapEncodeTiled refused a TMA "
                            "descriptor")
+    if status == COOPERATIVE_TOO_LARGE:
+        raise RuntimeError(f"{kernel}: the grid cannot be co-resident on the "
+                           f"card (CUDA error {status})")
     if status != 0:
         raise RuntimeError(f"{kernel}: CUDA error {status} at launch")
 

@@ -7,7 +7,8 @@ that block into one CUDA block's tile, and K1 runs with it.  When the port's
 tuning cache (``repro_torch.search``) holds a record for the shape, its
 block — measured on the card by ``python -m repro_torch.search.tune
 --backend measure`` — takes the compiler's place.  ``scheduled_gru`` does
-the same for the GRU sequence (K4 over K3).
+the same for the GRU sequence's input projection (K2, before K4's
+recurrence); ``gru_tile`` maps the compiler's GRU plan to K3's tile.
 
 The GPU lowering (``pallas_gpu_gemm``) describes a thread-block *cluster*
 of ``GPU_SMS_PER_CLUSTER`` = 16 SMs: its block fills the cluster's shared
@@ -19,19 +20,19 @@ Mapping the cluster block onto a real thread-block cluster is later work.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import asdict, dataclass
 
 import torch
 
 from ..compile import CompileError, compile_gemm, compile_gru
 from ..core.sysgraph import GPU_SMS_PER_CLUSTER, SystemGraph
+from .cuda import MAX_SMEM_BYTES
 from .gemm import (Launch, Route, clamp_choice, gemm, gemm_bias_act,
                    gemm_launch, gemm_route, operand_route, pow2_at_least,
                    route_tile, tuned_block, tuned_record)
 from .gru import TILE_B, TILE_H, gru_cell, gru_seq
 
-#: the largest shared memory one block can use on Hopper
-MAX_SMEM_BYTES = 232_448
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -74,13 +75,17 @@ def launch_config(lowering: dict, dtype: torch.dtype,
 def gru_tile(block: tuple[int, int]) -> tuple[int, int]:
     """Map the compiler's GRU (batch, hidden) tile to one K3 block's tile.
 
-    The batch tile stays whole in one block (splitting it would read every
-    weight once more, and weights are what bound the step); the hidden tile
-    is shared out over the cluster's 16 SMs.  Both round up to a power of
-    two and clamp to the tiles K3 is built for."""
+    The cluster's tile is shared out over its 16 SMs as sqrt(16) x
+    sqrt(16) = 4 x 4, as ``gemm.route_tile`` shares a GEMM block: the
+    hidden tile takes a quarter, and the batch tile stays whole in one
+    block (splitting it would read every weight once more, and weights are
+    what bound the step; K3's split over the reduction supplies the
+    blocks).  Both round up to a power of two and clamp to the tiles K3 is
+    built for."""
     bb, bh = (int(v) for v in block)
+    share = math.isqrt(GPU_SMS_PER_CLUSTER)
     return (clamp_choice(pow2_at_least(bb), TILE_B),
-            clamp_choice(pow2_at_least(bh) // GPU_SMS_PER_CLUSTER, TILE_H))
+            clamp_choice(pow2_at_least(-(-bh // share)), TILE_H))
 
 
 def plan_gemm(m: int, n: int, k: int, dtype: torch.dtype = torch.float32,
@@ -142,10 +147,14 @@ def scheduled_gemm(a: torch.Tensor, b: torch.Tensor,
 def scheduled_gru(xs: torch.Tensor, h0: torch.Tensor, gru,
                   graph: SystemGraph | None = None) -> torch.Tensor:
     """GRU sequence xs [T, B, E] from h0 [B, H] with the weights of ``gru``
-    (a ``FusedGRU``), tiled as the compilation driver planned the cell."""
-    _, batch, inp = xs.shape
-    block, _ = plan_gru(batch, h0.shape[1], inp, graph=graph)
-    return gru_seq(xs, h0, gru.params(), tile=gru_tile(block))
+    (a ``FusedGRU``).  The input projection of all T steps is a
+    (T B, 3H, E) GEMM, and K2 runs it at the tile ``plan_gemm`` gives: the
+    tuning cache's record where there is one, else the compilation
+    driver's plan."""
+    steps, batch, inp = xs.shape
+    cfg, _ = plan_gemm(steps * batch, 3 * h0.shape[1], inp, dtype=xs.dtype,
+                       graph=graph)
+    return gru_seq(xs, h0, gru.params(), proj_tile=cfg.tile)
 
 
 __all__ = [

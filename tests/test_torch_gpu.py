@@ -5,6 +5,8 @@ JAX, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -15,7 +17,11 @@ from repro_torch.kernels.gemm import (ACTS, block_tile, device_sms, gemm,
                                       gemm_bias_act, gemm_launch, gemm_route,
                                       gemm_reduce, gemm_transpose,
                                       operand_route)
-from repro_torch.kernels.gru import PARAM_NAMES, FusedGRU, gru_cell, gru_seq
+from repro_torch.kernels.gru import (PARAM_NAMES, TILE_B, TILE_H, FusedGRU,
+                                     _recurrence, device_smem, device_split,
+                                     gru_cell, gru_cell_reduce, gru_seq,
+                                     gru_seq_launch, pack_w,
+                                     step_blocks_per_sm, step_route)
 from repro_torch.kernels.ops import scheduled_gemm, scheduled_gru
 from repro_torch.search.evaluate import MeasuredGemmEvaluator
 
@@ -188,23 +194,166 @@ def test_measured_evaluator_on_card(cuda_device):
         assert np.isfinite(seconds) and 0 < seconds < 1
 
 
+def gru_operands(rng, T, B, E, H, device):
+    p = {n: to_torch(v * np.float32(H ** -0.5), device=device)
+         for n, v in make_gru_params(rng, E, H).items()}
+    return (p, to_torch(rand(rng, (T, B, E)), device=device),
+            to_torch(rand(rng, (B, H)), device=device))
+
+
+def gru_counts():
+    return (gru_cell.launches, gru_cell_reduce.launches, gru_seq.launches,
+            gemm_bias_act.launches)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("tile", [(16, 16), (16, 32), (32, 16), (32, 32)])
+@pytest.mark.parametrize("tile", [(16, 16), (16, 32), (16, 64), (32, 16),
+                                  (32, 32), (32, 64)])
 def test_gru_kernels_on_card(cuda_device, tile):
+    """K3 at every built tile, and K4: one K2 projection and one
+    persistent launch a sequence, no K3."""
     rng = np.random.default_rng(4)
     T, B, E, H = 6, 20, 72, 200
-    p = {n: to_torch(v / np.sqrt(H), device=cuda_device)
-         for n, v in make_gru_params(rng, E, H).items()}
-    xs = to_torch(rand(rng, (T, B, E)), device=cuda_device)
-    h0 = to_torch(rand(rng, (B, H)), device=cuda_device)
-    cells, seqs = gru_cell.launches, gru_seq.launches
+    p, xs, h0 = gru_operands(rng, T, B, E, H, cuda_device)
+    split = device_split(B, E, H, tile, cuda_device, step_route(E, H))
+    before = gru_counts()
     np.testing.assert_allclose(as_f32(gru_cell(xs[0], h0, p, tile=tile)),
                                as_f32(ref.gru_cell_ref(xs[0], h0, p)),
                                **F32_TOL)
-    np.testing.assert_allclose(as_f32(gru_seq(xs, h0, p, tile=tile)),
+    after_cell = gru_counts()
+    assert after_cell == (before[0] + 1, before[1] + (split > 1), before[2],
+                          before[3])
+    np.testing.assert_allclose(as_f32(gru_seq(xs, h0, p)),
                                as_f32(ref.gru_seq_ref(xs, h0, p)),
                                rtol=1e-4, atol=1e-5)
-    assert (gru_cell.launches, gru_seq.launches) == (cells + 1 + T, seqs + 1)
+    assert gru_counts() == (after_cell[0], after_cell[1], after_cell[2] + 1,
+                            after_cell[3] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,E,H,tile,split_on", [
+    (32, 1792, 1792, (16, 16), False), (32, 1792, 1792, (32, 32), True),
+    (4, 64, 512, (16, 16), True), (3, 12, 50, (16, 32), True),
+    (1, 5, 7, (32, 16), True), (17, 40, 33, (32, 64), True),
+    (64, 64, 4096, (16, 16), False)])
+def test_gru_cell_split_on_and_off_on_card(cuda_device, B, E, H, tile,
+                                           split_on):
+    """K3 against gru_cell_ref and against the split plain version, with
+    the split on and off (one slice where the tiles already fill whole
+    waves), on both copy routes (H % 4 != 0 takes 4-byte copies)."""
+    rng = np.random.default_rng(B + E + H)
+    p, xs, h = gru_operands(rng, 1, B, E, H, cuda_device)
+    split = device_split(B, E, H, tile, cuda_device, step_route(E, H))
+    assert (split > 1) == split_on
+    before = gru_cell_reduce.launches
+    got = gru_cell(xs[0], h, p, tile=tile)
+    torch.cuda.synchronize()
+    assert gru_cell_reduce.launches == before + split_on
+    np.testing.assert_allclose(as_f32(got),
+                               as_f32(ref.gru_cell_ref(xs[0], h, p)),
+                               **F32_TOL)
+    np.testing.assert_allclose(
+        as_f32(got), as_f32(ref.gru_cell_split_ref(xs[0], h, p, 32, split)),
+        **F32_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,B,E,H", [(5, 3, 12, 50), (4, 17, 40, 33),
+                                     (1, 1, 5, 7), (3, 64, 24, 200),
+                                     (9, 32, 64, 1792), (3, 4, 16, 2048),
+                                     (4, 65, 24, 200), (3, 130, 40, 1792),
+                                     (2, 20, 8, 9000)])
+def test_gru_seq_ragged_and_partly_resident_on_card(cuda_device, T, B, E, H):
+    """K4 against gru_seq_ref at ragged sizes, at H >= 1792, where only
+    part of each block's U panel fits in shared memory (none of it at
+    H = 9000), and at batches above 64 rows or H wide enough to cut the
+    launch's rows, which run as groups of rows, one launch each."""
+    rng = np.random.default_rng(T + B + E + H)
+    p, xs, h0 = gru_operands(rng, T, B, E, H, cuda_device)
+    launch = gru_seq_launch(B, E, H, device_sms(cuda_device),
+                            device_smem(cuda_device))
+    if H >= 1792:
+        assert launch.rows_on_chip < H
+        assert (launch.rows_on_chip > 0) == (H <= 2048)
+    seqs, projections = gru_seq.launches, gemm_bias_act.launches
+    got = gru_seq(xs, h0, p)
+    assert gru_seq.launches - seqs == -(-B // launch.batch)
+    assert gemm_bias_act.launches - projections == 1
+    np.testing.assert_allclose(as_f32(got),
+                               as_f32(ref.gru_seq_ref(xs, h0, p)),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_gru_kernels_bit_identical_across_runs(cuda_device):
+    """Fixed summation orders (k-lanes, slices, steps): two runs of K3 (split
+    on) and of K4 (U partly resident) give the same bits."""
+    rng = np.random.default_rng(12)
+    T, B, E, H = 16, 32, 1792, 1792
+    p, xs, h0 = gru_operands(rng, T, B, E, H, cuda_device)
+    assert device_split(B, E, H, (32, 16), cuda_device) > 1
+    cells = [as_f32(gru_cell(xs[0], h0, p, tile=(32, 16))) for _ in range(2)]
+    seqs = [as_f32(gru_seq(xs, h0, p)) for _ in range(2)]
+    np.testing.assert_array_equal(cells[0], cells[1])
+    np.testing.assert_array_equal(seqs[0], seqs[1])
+
+
+@pytest.mark.gpu
+def test_gru_seq_grid_not_co_resident_raises(cuda_device):
+    """A grid larger than the card can hold at once is refused before it
+    launches (it would wait forever at the first barrier), and the card
+    still works afterwards."""
+    rng = np.random.default_rng(13)
+    T, B, E, H = 3, 4, 16, 1792
+    p, xs, h0 = gru_operands(rng, T, B, E, H, cuda_device)
+    big = gru_seq_launch(B, E, H, sms=H)       # one column a block: 1792
+    assert big.blocks == H
+    w, bias = pack_w(p)
+    g = xs.view(T * B, E) @ w + bias
+    seqs = gru_seq.launches
+    with pytest.raises(RuntimeError, match="co-resident"):
+        _recurrence(g, h0, p, big)
+    assert gru_seq.launches == seqs
+    np.testing.assert_allclose(as_f32(gru_seq(xs, h0, p)),
+                               as_f32(ref.gru_seq_ref(xs, h0, p)),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_gru_seq_refuses_a_launch_its_layout_does_not_fit(cuda_device):
+    """The C entry rebuilds the kernel's shared-memory layout from its own
+    constants and refuses a launch that gives it less (it would write past
+    its dynamic shared memory), before launching."""
+    rng = np.random.default_rng(14)
+    T, B, E, H = 3, 32, 16, 1792
+    p, xs, h0 = gru_operands(rng, T, B, E, H, cuda_device)
+    launch = gru_seq_launch(B, E, H, device_sms(cuda_device),
+                            device_smem(cuda_device))
+    w, bias = pack_w(p)
+    g = xs.view(T * B, E) @ w + bias
+    seqs = gru_seq.launches
+    for short in (dataclasses.replace(launch, smem_bytes=launch.smem_bytes - 4),
+                  dataclasses.replace(launch, rows_on_chip=launch.hp)):
+        with pytest.raises(ValueError, match="no kernel"):
+            _recurrence(g, h0, p, short)
+    assert gru_seq.launches == seqs
+    np.testing.assert_allclose(as_f32(_recurrence(g, h0, p, launch)),
+                               as_f32(ref.gru_seq_ref(xs, h0, p)),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_gru_library_constants_and_occupancy(cuda_device):
+    """Binding the library checks its constants against the wrapper's
+    copies; the step kernel's resident blocks a SM come from the card and
+    enter the split."""
+    for bb in TILE_B:
+        for bh in TILE_H:
+            for route in ("vec4", "scalar"):
+                per_sm = step_blocks_per_sm((bb, bh), route, cuda_device)
+                assert 1 <= per_sm <= 8
+    with pytest.raises(ValueError):
+        step_blocks_per_sm((8, 8), "vec4", cuda_device)
 
 
 @pytest.mark.gpu

@@ -11,7 +11,7 @@ from repro_torch.kernels import cuda
 from repro_torch.kernels.gemm import (ROUTES, gemm, gemm_bias_act,
                                       gemm_route, split_k)
 from repro_torch.kernels.gru import (PARAM_NAMES, TILE_B, TILE_H, FusedGRU,
-                                     gru_cell, gru_seq)
+                                     gru_cell, gru_cell_reduce, gru_seq)
 from repro_torch.kernels.ops import (MAX_SMEM_BYTES, gru_tile, launch_config,
                                      plan_gemm, plan_gru, scheduled_gemm,
                                      scheduled_gru)
@@ -107,7 +107,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 def test_cpu_path_launches_nothing():
     gemm.launches = gemm_bias_act.launches = 0
-    gru_cell.launches = gru_seq.launches = 0
+    gru_cell.launches = gru_cell_reduce.launches = gru_seq.launches = 0
     a, b = torch.rand(40, 24), torch.rand(24, 56)
     torch.testing.assert_close(scheduled_gemm(a, b)[0], a @ b)
     bias = torch.rand(56)
@@ -121,7 +121,7 @@ def test_cpu_path_launches_nothing():
     torch.testing.assert_close(gru_cell(xs[0], h0, model.params()),
                                gru_seq(xs[:1], h0, model.params()))
     assert (gemm.launches, gemm_bias_act.launches, gru_cell.launches,
-            gru_seq.launches) == (0, 0, 0, 0)
+            gru_cell_reduce.launches, gru_seq.launches) == (0, 0, 0, 0, 0)
 
 
 def test_wrappers_reject_what_no_kernel_takes():
