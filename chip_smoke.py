@@ -10,18 +10,31 @@ launch the hand-written CUDA kernels with the plan.
 1. Prints the card's name and power limit (``nvidia-smi``).
 2. Builds the kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source,
    all at once).
-3. Three phases of the main path, each with every launch counter set to 0
+3. ``compile``: the main path's compiles (the 8 GEMMs, the 5 GRU
+   projections and the 5 GRU cells) through the strict pipeline, whose
+   ``VerifyPass`` checks each schedule before Lower (the line counts the
+   compiles it let through), into a fresh ``ArtifactCache`` under
+   ``build/repro_torch/`` that stays the default for the run; each fresh
+   artifact is checked again by ``verify_artifact``.  A second pass with the in-process memo cleared and
+   the cache read back from its file must compile nothing fresh and give
+   the same artifacts (``to_dict`` but ``meta``).
+4. Three phases of the main path, each with every launch counter set to 0
    just before it and read just after (one ``launches`` line each):
 
    * ``plan`` — with an empty tuning cache as the default, so the tile is
      the compiler's: the 8 DeepBench GEMMs (paper Fig. 3) in f32 and in
      bf16 through ``scheduled_gemm`` (K1), then for each of the 4
-     DeepBench GRU sizes (paper Fig. 4; E = H, T = 128) one K3 step at the
-     tile of the compiler's GRU plan (``gru_cell`` at ``gru_tile``) and
-     the sequence through ``FusedGRU`` (K4: K2 projects the input of all
-     128 steps at ``plan_gemm``'s tile, then one persistent kernel runs
-     the recurrence); each sequence must launch exactly one K2 and one
-     persistent kernel, and no K3;
+     DeepBench GRU sizes (paper Fig. 4; E = H, T = 128), in f32 and in
+     bf16, one K3 step at the tile of the compiler's GRU plan
+     (``gru_cell`` at ``gru_tile``) and the sequence through ``FusedGRU``
+     (K4 on its persistent route: K2's launch projects the input of all
+     128 steps at ``plan_gemm``'s tile, storing G in f32, then one
+     persistent kernel runs the recurrence); each such sequence must
+     launch exactly one K2 and one persistent kernel, and no K3; then one
+     f32 sequence at B = 8, E = 512, H = 10240, T = 4, wider than the
+     persistent kernel can place, which must take the step route: T
+     launches of K3 at the compiler's GRU tile and no K2 or persistent
+     kernel;
    * ``tune`` — the port's tuner (``python -m repro_torch.search.tune
      --suite gemm --backend measure --target gpu_sm --trials 8``) on the 8
      GEMMs, K1 timed on the card, into a fresh cache file under
@@ -37,7 +50,7 @@ launch the hand-written CUDA kernels with the plan.
    transposing passes (``gemm_transpose``) and split-K reduces
    (``gemm_reduce``), and K3's split-step reduces (``gru_cell_reduce``).
 
-4. Holds each output against the plain PyTorch version on the same inputs,
+5. Holds each output against the plain PyTorch version on the same inputs,
    and times the kernel (its whole launch sequence), the plain version and
    one PyTorch library call computing the same function with CUDA events
    (inputs repeated, so L2 is warm where they fit in it).  One JSON line
@@ -53,16 +66,20 @@ launch the hand-written CUDA kernels with the plan.
    memory, rows and bytes of U kept in shared memory); registers and
    spills of both kernels; and device time by kernel from a profiler trace
    (``step_device_ms``: K3's step and reduce; ``seq_device_ms``: K4's
-   projection, recurrence and the rest: packing copies and a memset).
-5. Prints the ``kernels`` line and, last, the device line.  Exits non-zero,
+   projection, recurrence and the rest: packing copies and a memset).  The
+   ``gru_bf16`` lines give the same for the bf16 step and sequence, beside
+   ``torch.gru_cell`` and cuDNN's ``nn.GRU`` in bf16; the ``gru_step_route``
+   line times the wide f32 sequence.
+6. Prints the ``kernels`` line and, last, the device line.  Exits non-zero,
    before the device line, when a comparison fails, a kernel of a phase was
    never launched in it, a bf16 DeepBench GEMM did not take the wgmma route
    or a launch with fewer tiles than SMs did not split K, a K3 step at a
-   DeepBench size launched fewer blocks than the card has SMs, a K4
-   sequence launched other than one K2 and one persistent kernel, or the
-   tuner failed or wrote fewer than 8 ``measure`` records; when there is
-   no card
-   it prints nothing and exits 1.
+   DeepBench size launched fewer blocks than the card has SMs, a DeepBench
+   K4 sequence launched other than one K2 and one persistent kernel or the
+   wide one other than its T K3 steps, a compile failed verification or
+   the second compile pass compiled anything fresh or gave another
+   artifact, or the tuner failed or wrote fewer than 8 ``measure``
+   records; when there is no card it prints nothing and exits 1.
 
 Inputs: uniform(-1, 1) from ``np.random.default_rng(seed)``; the GRU
 weights are uniform(-1/sqrt(H), 1/sqrt(H)), PyTorch's own GRU init.
@@ -72,14 +89,17 @@ the error scales with the outputs' magnitude (up to ~80 here); K2 f32 the
 same with max|A @ B + bias|, the activation's input; GEMM and K2 bf16
 rtol = atol = 2e-2 (``tests/test_kernels.py``); one GRU step (K3) rtol =
 atol = 1e-5 and the GRU sequence rtol 1e-4, atol 1e-5
-(``tests/test_kernels.py``).
+(``tests/test_kernels.py``); bf16 GRU steps and sequences rtol = atol =
+2e-2, JAX's bf16 tolerance.
 Bounds: the larger of bytes (each input read once, each output written
 once) over 3.35 TB/s and operations (2mnk for a GEMM) over 67 TFLOP/s (f32,
 CUDA cores) or 989 TFLOP/s (bf16) — NVIDIA H100 SXM data-sheet peaks at
 700 W.  K2's library call is ``torch.addmm(bias, A, B)`` followed by the
 activation's torch op: two launches where there is an activation.  In the
 ``kernels`` line each time sums that kernel's calls over the main path's
-shapes, one call per shape (for K3, one step; K1 at the tuned tile).
+shapes, one call per shape (for K3, one step; K1 at the tuned tile; K3
+and K4 in f32 and bf16 at the DeepBench sizes), and ``launches`` sums the
+three phases.
 """
 from __future__ import annotations
 
@@ -105,11 +125,15 @@ GEMM_SIZES = [(1024, 128, 1024), (2048, 64, 2048), (1760, 128, 1760),
 GRU_SIZES = [(32, 512), (32, 1024), (16, 1536), (32, 1792)]
 STEPS = 128
 SHORT_STEPS = 2        # a sequence too short for an error to fade from h
+#: (B, E, H, T) of the sequence wider than K4's persistent kernel places
+#: (f32 on an H100: H > 9504), which takes the step route
+WIDE_GRU = (8, 512, 10240, 4)
 ACTS = ("", "sigmoid", "tanh", "relu")
 TUNE_TRIALS = 8
 GEMM_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
 GRU_TOL = (1e-4, 1e-5)
 CELL_TOL = (1e-5, 1e-5)
+BF16_TOL = (2e-2, 2e-2)
 
 
 def nvidia_smi(query: str) -> str:
@@ -203,6 +227,35 @@ def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
+def library_gru_bf16(params: dict, x0: torch.Tensor, xs: torch.Tensor,
+                     h0: torch.Tensor) -> dict:
+    """Times of ``torch.gru_cell`` (one step) and cuDNN's ``nn.GRU`` (the
+    sequence) on bf16 operands; a library that refuses bf16 gives ``None``
+    and its error, since it is a yardstick and not part of the port."""
+    inp, hidden = params["Wr"].shape
+    w_ih = torch.cat([params["Wr"], params["Wz"], params["Wn"]], 1).T \
+        .contiguous()
+    w_hh = torch.cat([params["Ur"], params["Uz"], params["Un"]], 1).T \
+        .contiguous()
+    zeros = torch.zeros_like(params["br"])
+    b_ih = torch.cat([params["br"], params["bz"], params["bnx"]])
+    b_hh = torch.cat([zeros, zeros, params["bnh"]])
+    out = {"step_ms": None, "seq_ms": None, "error": None}
+    try:
+        with torch.no_grad():
+            out["step_ms"] = time_ms(
+                lambda: torch.gru_cell(x0, h0, w_ih, w_hh, b_ih, b_hh), 50)
+            lib = torch.nn.GRU(inp, hidden).to(xs.device, torch.bfloat16)
+            lib.weight_ih_l0.copy_(w_ih)
+            lib.weight_hh_l0.copy_(w_hh)
+            lib.bias_ih_l0.copy_(b_ih)
+            lib.bias_hh_l0.copy_(b_hh)
+            out["seq_ms"] = time_ms(lambda: lib(xs, h0[None]), 5)
+    except RuntimeError as exc:
+        out["error"] = str(exc).splitlines()[0]
+    return out
+
+
 def entry(name, source, replaces, count, rs):
     """One kernel's line: times summed over the main path's shapes."""
     bounds = [r["bound"] for r in rs]
@@ -215,7 +268,8 @@ def entry(name, source, replaces, count, rs):
             "bound_ms": sum(b for b, _ in bounds),
             "bound_by": "operations"
             if by_ops >= sum(b for b, _ in bounds) / 2 else "bytes",
-            "library_ms": sum(r["library_ms"] for r in rs)}
+            "library_ms": None if any(r["library_ms"] is None for r in rs)
+            else sum(r["library_ms"] for r in rs)}
 
 
 def main() -> int:
@@ -226,6 +280,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device is present", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.compile import (ArtifactCache, compile_gemm, compile_gru,
+                                     set_default_artifact_cache)
+    from repro_torch.compile import driver as compile_driver
+    from repro_torch.compile.driver import clear_memo
+    from repro_torch.compile.pipeline import DEFAULT_PASSES, VerifyPass
     from repro_torch.core.sysgraph import gpu_sm
     from repro_torch.kernels import cuda, ref
     from repro_torch.kernels.gemm import (MIN_SPLIT_STEPS, block_tile,
@@ -237,11 +296,13 @@ def main() -> int:
     from repro_torch.kernels.gru import (STEP_KC, FusedGRU, PARAM_NAMES,
                                          device_smem, device_split, gru_cell,
                                          gru_cell_reduce, gru_seq,
-                                         gru_seq_launch, pack_w, step_route)
+                                         gru_seq_launch, pack_w, seq_route,
+                                         step_route)
     from repro_torch.kernels.ops import (gru_tile, plan_gemm, plan_gru,
                                          scheduled_gemm)
     from repro_torch.search import tune
     from repro_torch.search.cache import TuningCache, set_default_cache
+    from repro_torch.verify import verify_artifact
 
     dev = torch.device("cuda")
     graph = gpu_sm(8)
@@ -272,17 +333,37 @@ def main() -> int:
         params = {nm: uniform({"W": (inp, hidden), "U": (hidden, hidden),
                                "b": (hidden,)}[nm[0]], -s, s)
                   for nm in PARAM_NAMES}
+        xs = torch.from_numpy(uniform((STEPS, batch, inp))).to(dev)
+        h0 = torch.from_numpy(uniform((batch, hidden))).to(dev)
         gru_cases.append({
             "bh": (batch, hidden), "params": params,
             "model": FusedGRU.from_numpy(params, device=dev),
-            "xs": torch.from_numpy(uniform((STEPS, batch, inp))).to(dev),
-            "h0": torch.from_numpy(uniform((batch, hidden))).to(dev)})
+            "model_bf16": FusedGRU.from_numpy(params, device=dev,
+                                              dtype=torch.bfloat16),
+            "xs": xs, "h0": h0, "xs_bf16": xs.bfloat16(),
+            "h0_bf16": h0.bfloat16()})
+    # the wide sequence: weights made on the card from the seed (1.3 GB)
+    wb, we, wh, wt = WIDE_GRU
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+    def card_uniform(shape, scale=1.0):
+        return (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * scale
+
+    wide_model = FusedGRU(we, wh, device=dev)
+    with torch.no_grad():
+        for nm in PARAM_NAMES:
+            buf = getattr(wide_model, nm)
+            buf.copy_(card_uniform(buf.shape, wh ** -0.5))
+    wide = {"model": wide_model, "xs": card_uniform((wt, wb, we)),
+            "h0": card_uniform((wb, wh))}
     torch.cuda.synchronize()
 
     counters = {"gemm": gemm, "gemm_bias_act": gemm_bias_act,
                 "gru_cell": gru_cell, "gru_cell_reduce": gru_cell_reduce,
                 "gru_seq": gru_seq, "gemm_transpose": gemm_transpose,
                 "gemm_reduce": gemm_reduce}
+    #: the counters of the kernels' own wrappers
+    wrappers = ("gemm", "gemm_bias_act", "gru_cell", "gru_seq")
     phase_launches = {}
     failures = []
     sms = device_sms(dev)
@@ -325,8 +406,66 @@ def main() -> int:
         if missing:
             failures.append(f"{phase}: kernels never launched: {missing}")
 
-    # ---- main path, phase plan: the compiler's tile ----------------------
+    # ---- the main path's compiles: verified, cached, replayed ------------
     os.makedirs(cuda.BUILD_DIR, exist_ok=True)
+    compiled_path = cuda.BUILD_DIR / f"compiled-{os.getpid()}-{time.time_ns()}.json"
+    compiles = ([("gemm", m, n, k) for m, n, k in GEMM_SIZES]
+                + [("gemm", STEPS * b, 3 * h, h) for b, h in GRU_SIZES]
+                + [("gemm", wt * wb, 3 * wh, we)]
+                + [("gru", b, h, h) for b, h in GRU_SIZES]
+                + [("gru", wb, wh, we)])
+
+    def compile_all():
+        return [compile_gemm(*dims, graph=graph) if kind == "gemm"
+                else compile_gru(*dims, graph=graph)
+                for kind, *dims in compiles]
+
+    def payload(art):
+        return {k: v for k, v in art.to_dict().items() if k != "meta"}
+
+    class CountedVerifyPass(VerifyPass):
+        """The driver's VerifyPass, counting the compiles it let through."""
+
+        passed = 0
+
+        def run(self, ctx):
+            super().run(ctx)
+            CountedVerifyPass.passed += ctx.verify
+
+    t0 = time.perf_counter()
+    clear_memo()
+    set_default_artifact_cache(ArtifactCache(str(compiled_path)))
+    compile_driver.VerifyPass = CountedVerifyPass
+    try:
+        first = compile_all()
+    finally:
+        compile_driver.VerifyPass = VerifyPass
+    fresh = [a for a in first if not a.from_cache]
+    verified = sum(verify_artifact(a).ok for a in fresh)
+    compile_s = time.perf_counter() - t0
+    clear_memo()
+    set_default_artifact_cache(ArtifactCache(str(compiled_path)))
+    second = compile_all()
+    refresh = sum(not a.from_cache for a in second)
+    same = sum(payload(a) == payload(b) for a, b in zip(first, second))
+    emit({"phase": "compile", "cache": os.path.relpath(compiled_path, ROOT),
+          "passes": [ps.name for ps in DEFAULT_PASSES],
+          "compiles": len(first), "fresh": len(fresh),
+          "passed_verify_pass": CountedVerifyPass.passed,
+          "verify_artifact_ok": verified,
+          "seconds": compile_s, "cached_artifacts":
+          len(ArtifactCache(str(compiled_path))),
+          "second_pass_fresh": refresh, "second_pass_identical": same})
+    if "verify" not in [ps.name for ps in DEFAULT_PASSES] or not fresh \
+            or not CountedVerifyPass.passed == verified == len(fresh):
+        failures.append(f"compile: {len(fresh)} fresh compiles, "
+                        f"{CountedVerifyPass.passed} through VerifyPass, "
+                        f"{verified} verified again")
+    if refresh or same != len(first):
+        failures.append(f"compile: the second pass compiled {refresh} fresh, "
+                        f"{same} of {len(first)} artifacts identical")
+
+    # ---- main path, phase plan: the compiler's tile ----------------------
     empty = cuda.BUILD_DIR / f"tuning-empty-{os.getpid()}.json"
     set_default_cache(TuningCache(str(empty)))
     def snapshot():
@@ -336,20 +475,39 @@ def main() -> int:
                           "gru_cell_reduce", "gru_seq")):
         for c in gemm_cases:
             c["out"], c["cfg"] = scheduled_gemm(c["a"], c["b"], graph=graph)
+        def sequence(model, xs, h0):
+            """The sequence through ``FusedGRU``, and the launches of each
+            kernel's wrapper it made (K2's transposing pass and split-K
+            reduce and K3's reduce are parts of those launches)."""
+            before = snapshot()
+            out = model(xs, h0)
+            return out, {n: v - before[n] for n, v in snapshot().items()
+                         if v > before[n] and n in wrappers}
+
         for c in gru_cases:
             batch, hidden = c["bh"]
             c["block"], _ = plan_gru(batch, hidden, hidden, graph=graph)
             c["tile"] = gru_tile(c["block"])
-            c["step_out"] = gru_cell(c["xs"][0], c["h0"], c["model"].params(),
-                                     tile=c["tile"])
-            before = snapshot()
-            c["out"] = c["model"](c["xs"], c["h0"])
-            c["seq_launches"] = {n: v - before[n]
-                                 for n, v in snapshot().items() if v > before[n]}
-            if c["seq_launches"] != {"gemm_bias_act": 1, "gru_seq": 1}:
-                failures.append(f"gru {batch}x{hidden}: a sequence launched "
-                                f"{c['seq_launches']}, not one K2 projection "
-                                "and one persistent kernel")
+            for sfx, x_key, h_key, model in (
+                    ("", "xs", "h0", c["model"]),
+                    ("_bf16", "xs_bf16", "h0_bf16", c["model_bf16"])):
+                c["step_out" + sfx] = gru_cell(c[x_key][0], c[h_key],
+                                               model.params(), tile=c["tile"])
+                c["out" + sfx], c["seq_launches" + sfx] = sequence(
+                    model, c[x_key], c[h_key])
+                if c["seq_launches" + sfx] != {"gemm_bias_act": 1,
+                                               "gru_seq": 1}:
+                    failures.append(
+                        f"gru {batch}x{hidden}{sfx}: a sequence launched "
+                        f"{c['seq_launches' + sfx]}, not one K2 projection "
+                        "and one persistent kernel")
+        wide["out"], wide["seq_launches"] = sequence(wide["model"], wide["xs"],
+                                                     wide["h0"])
+        if wide["seq_launches"].get("gru_cell") != wt or any(
+                wide["seq_launches"].get(n) for n in ("gemm_bias_act",
+                                                      "gru_seq")):
+            failures.append(f"gru {wb}x{wh}: the wide sequence launched "
+                            f"{wide['seq_launches']}, not {wt} K3 steps")
 
     # ---- main path, phase tune: K1 measured into a fresh cache -----------
     cache_path = cuda.BUILD_DIR / f"tuning-{os.getpid()}-{time.time_ns()}.json"
@@ -522,13 +680,13 @@ def main() -> int:
             failures.append(f"gru_cell {batch}x{hidden}: {step_blocks} blocks "
                             f"on {sms} SMs")
         step_res = gru_resources(
-            rf"gru_step_kernelILi{tile[0]}ELi{tile[1]}ELb"
+            rf"gru_step_kernelIfLi{tile[0]}ELi{tile[1]}ELb"
             f"{int(route == 'vec4')}E")
         # K4's launches: the projection's tile and the persistent partition
         proj_cfg, _ = plan_gemm(STEPS * batch, 3 * hidden, inp, graph=graph)
         seq_launch = gru_seq_launch(batch, inp, hidden, sms, smem_limit)
         seq_res = gru_resources(
-            rf"gru_seq_kernelILb{int(hidden % 4 == 0)}E")
+            rf"gru_seq_kernelIfLb{int(hidden % 4 == 0)}E")
         # K2 at the projection's shape, held against its plain version at
         # K2's f32 tolerance: G's early rows fade from h_T, so the sequence's
         # check alone would not see a fault there
@@ -626,6 +784,106 @@ def main() -> int:
                    "err": step_err})
         k4.append({"ms": seq_ms, "plain_ms": seq_plain_ms,
                    "library_ms": seq_lib_ms, "bound": seq_bound, "err": err})
+
+        # the same size in bf16: operands of 2 bytes, G and the math f32
+        bf = torch.bfloat16
+        pb, xb, hb = c["model_bf16"].params(), c["xs_bf16"], c["h0_bf16"]
+        x0b = xb[0]
+        b_step_err, b_step_ok = mismatch(c["step_out_bf16"],
+                                         ref.gru_cell_ref(x0b, hb, pb),
+                                         *BF16_TOL)
+        b_err, b_ok = mismatch(c["out_bf16"], ref.gru_seq_ref(xb, hb, pb),
+                               *BF16_TOL)
+        if not (b_step_ok and b_ok):
+            failures.append(f"gru bf16 {batch}x{hidden}: step max err "
+                            f"{b_step_err}, sequence max err {b_err}")
+        b_split = device_split(batch, inp, hidden, tile, dev, route, bf)
+        b_launch = gru_seq_launch(batch, inp, hidden, sms, smem_limit, bf)
+        b_proj, _ = plan_gemm(STEPS * batch, 3 * hidden, inp, dtype=bf,
+                              graph=graph)
+        b_out = torch.empty_like(hb)
+
+        def b_step():
+            return gru_cell(x0b, hb, pb, tile=tile, out=b_out)
+
+        def b_seq():
+            return gru_seq(xb, hb, pb, proj_tile=b_proj.tile)
+
+        b_lib = library_gru_bf16(pb, x0b, xb, hb)
+        b_step_ms = time_ms(b_step, 50)
+        b_step_dev = device_ms(b_step, 10, STEP_KERNELS, "step")
+        b_step_plain = time_ms(lambda: ref.gru_cell_ref(x0b, hb, pb), 50)
+        b_seq_ms = time_ms(b_seq, 5)
+        b_seq_dev = device_ms(b_seq, 3, SEQ_KERNELS, "recurrence", other=True)
+        b_seq_plain = time_ms(lambda: ref.gru_seq_ref(xb, hb, pb), 5)
+        b_w_bytes = 2 * (3 * inp * hidden + 3 * hidden * hidden + 4 * hidden)
+        b_step_bound = bound(b_w_bytes + 2 * batch * (inp + 2 * hidden),
+                             step_flops, bf)
+        b_seq_bound = bound(
+            b_w_bytes + 2 * (STEPS * batch * inp + 2 * batch * hidden),
+            STEPS * step_flops, bf)
+        emit({"phase": "gru_bf16", "batch": batch, "hidden": hidden,
+              "inp": inp, "steps": STEPS, "tile": list(tile),
+              "step_split": b_split, "step_route": route,
+              "step_resources": gru_resources(
+                  rf"gru_step_kernelI13__nv_bfloat16Li{tile[0]}ELi{tile[1]}"
+                  f"ELb{int(route == 'vec4')}E"),
+              "step_ms": b_step_ms, "step_device_ms": b_step_dev,
+              "step_plain_ms": b_step_plain,
+              "step_library_ms": b_lib["step_ms"],
+              "step_bound_ms": b_step_bound[0],
+              "step_bound_by": b_step_bound[1],
+              "seq_launches": c["seq_launches_bf16"],
+              "projection_tile": list(b_proj.tile),
+              "projection_route": b_proj.route,
+              "persistent": {
+                  "blocks": b_launch.blocks, "cols": b_launch.cols,
+                  "batch_rows": b_launch.batch, "lanes": b_launch.lanes,
+                  "smem_bytes": b_launch.smem_bytes,
+                  "u_rows_on_chip": b_launch.rows_on_chip,
+                  "u_bytes_on_chip": b_launch.u_bytes_on_chip,
+                  "u_bytes": b_launch.u_bytes},
+              "seq_resources": gru_resources(
+                  rf"gru_seq_kernelI13__nv_bfloat16Lb{int(hidden % 8 == 0)}E"),
+              "seq_ms": b_seq_ms, "seq_device_ms": b_seq_dev,
+              "seq_plain_ms": b_seq_plain,
+              "seq_library_ms": b_lib["seq_ms"],
+              "library_error": b_lib["error"],
+              "seq_bound_ms": b_seq_bound[0],
+              "seq_bound_by": b_seq_bound[1],
+              "step_max_abs_err": b_step_err, "max_abs_err": b_err,
+              "rtol": BF16_TOL[0], "atol": BF16_TOL[1],
+              "ok": b_step_ok and b_ok})
+        k3.append({"ms": b_step_ms, "plain_ms": b_step_plain,
+                   "library_ms": b_lib["step_ms"], "bound": b_step_bound,
+                   "err": b_step_err})
+        k4.append({"ms": b_seq_ms, "plain_ms": b_seq_plain,
+                   "library_ms": b_lib["seq_ms"], "bound": b_seq_bound,
+                   "err": b_err})
+
+    # the wide f32 sequence on the step route: T launches of K3
+    wp = wide["model"].params()
+    w_want = ref.gru_seq_ref(wide["xs"], wide["h0"], wp)
+    w_err, w_ok = mismatch(wide["out"], w_want, *GRU_TOL)
+    if not w_ok:
+        failures.append(f"gru {wb}x{wh} step route: max err {w_err}")
+    w_tile = gru_tile(plan_gru(wb, wh, we, graph=graph)[0])
+    w_ms = time_ms(lambda: gru_seq(wide["xs"], wide["h0"], wp,
+                                   step_tile=w_tile), 3)
+    w_plain = time_ms(lambda: ref.gru_seq_ref(wide["xs"], wide["h0"], wp), 3)
+    w_flops = 2.0 * wb * wh * 3 * (we + wh)
+    w_bound = bound(4 * (3 * we * wh + 3 * wh * wh + 4 * wh)
+                    + 4 * (wt * wb * we + 2 * wb * wh), wt * w_flops,
+                    torch.float32)
+    emit({"phase": "gru_step_route", "batch": wb, "inp": we, "hidden": wh,
+          "steps": wt,
+          "route": seq_route(wb, we, wh, torch.float32, sms, smem_limit),
+          "tile": list(w_tile),
+          "split": device_split(wb, we, wh, w_tile, dev, step_route(we, wh)),
+          "seq_launches": wide["seq_launches"], "seq_ms": w_ms,
+          "seq_plain_ms": w_plain, "seq_bound_ms": w_bound[0],
+          "seq_bound_by": w_bound[1], "max_abs_err": w_err,
+          "rtol": GRU_TOL[0], "atol": GRU_TOL[1], "ok": w_ok})
 
     launches = {name: sum(p[name] for p in phase_launches.values())
                 for name in counters}

@@ -8,8 +8,11 @@ selection is already in hand (the search evaluators), and ``DeltaScheduler``
 re-schedules many approaches of one selection incrementally.
 
 Every entry produces (or replays) a ``CompiledKernel``.  Fresh compiles are
-memoized in-process per artifact key.  The default target is the modeled
-GPU, ``gpu_sm(8)``.
+memoized in-process per artifact key; the persistent artifact cache is
+consulted when one is passed explicitly or activated process-wide
+(``repro_torch.compile.cache.set_default_artifact_cache``).  Every compile
+but ``compile_selection`` runs the static verifier (``VerifyPass``) before
+Lower by default.  The default target is the modeled GPU, ``gpu_sm(8)``.
 """
 from __future__ import annotations
 
@@ -22,9 +25,10 @@ from ..core.ir import Program
 from ..core.isel import Selection
 from ..core.sysgraph import SystemGraph, gpu_sm
 from .artifact import CompiledKernel, CompileError
+from .cache import ArtifactCache, get_default_artifact_cache
 from .keys import artifact_key, cacheable_approach
 from .pipeline import (CompileContext, LowerPass, MapPass, Pipeline,
-                       SchedulePass, SelectPass)
+                       SchedulePass, SelectPass, VerifyPass)
 
 #: In-process artifact memo: fresh compiles with a reproducible approach are
 #: reused by key.
@@ -96,6 +100,12 @@ _FRONTENDS = {
 # --------------------------------------------------------------------------- #
 
 
+def _resolve_cache(cache, use_cache: bool) -> ArtifactCache | None:
+    if not use_cache:
+        return None
+    return cache if cache is not None else get_default_artifact_cache()
+
+
 def _strip(art: CompiledKernel) -> CompiledKernel:
     """A detached copy holding only the serializable payload — what the memo
     keeps (and hands back) so it never pins live schedules/selections; a
@@ -108,78 +118,99 @@ def _strip(art: CompiledKernel) -> CompiledKernel:
     return s
 
 
-def _store(art: CompiledKernel, memoize: bool) -> CompiledKernel:
-    """The one memo policy for every compile entry."""
-    if cacheable_approach(art.approach) and memoize:
-        if len(_MEMO) >= _MEMO_CAP:
-            _MEMO.clear()
-        _MEMO[art.key] = _strip(art)
+def _store(art: CompiledKernel, cache: ArtifactCache | None,
+           memoize: bool) -> CompiledKernel:
+    """The one store/memo policy for every compile entry."""
+    if cacheable_approach(art.approach):
+        if cache is not None:
+            cache.store(art)
+        if memoize:
+            if len(_MEMO) >= _MEMO_CAP:
+                _MEMO.clear()
+            _MEMO[art.key] = _strip(art)
     return art
 
 
-def _finish(ctx: CompileContext, memoize: bool) -> CompiledKernel:
-    return _store(Pipeline(passes=(SchedulePass(), LowerPass())).run(ctx),
-                  memoize)
+def _finish(ctx: CompileContext, cache: ArtifactCache | None,
+            memoize: bool) -> CompiledKernel:
+    return _store(Pipeline(passes=(SchedulePass(), VerifyPass(),
+                                   LowerPass())).run(ctx),
+                  cache, memoize)
 
 
 def _lookup(program: Program, graph: SystemGraph, approach, backend: str,
-            memoize: bool, isa=None, allow_transforms: bool = True):
-    """(key, hit) from the in-process memo."""
+            cache: ArtifactCache | None, memoize: bool, isa=None,
+            allow_transforms: bool = True):
+    """(key, hit) — the memo is consulted first, then the persistent cache."""
     if not cacheable_approach(approach):
         return None, None
     key = artifact_key(program, graph, approach, backend, isa,
                        allow_transforms)
     if memoize and key in _MEMO:
         return key, _strip(_MEMO[key])
+    if cache is not None:
+        hit = cache.lookup(key)
+        if hit is not None:
+            return key, hit
     return key, None
 
 
 def compile_program(program: Program, graph: SystemGraph | None = None,
                     approach=None, isa=None, *,
                     allow_transforms: bool = True, backend: str = "cost",
-                    use_cache: bool = True,
+                    cache: ArtifactCache | None = None, use_cache: bool = True,
+                    verify: bool = True,
                     meta: dict | None = None) -> CompiledKernel:
-    """Program + SystemGraph + Approach -> CompiledKernel, through the
-    Map -> Select -> Schedule -> Lower pipeline."""
+    """Program + SystemGraph + Approach -> CompiledKernel, through the full
+    Map -> Select -> Schedule -> Verify -> Lower pipeline.  ``verify=False``
+    skips the static verifier."""
     graph = graph if graph is not None else gpu_sm(8)
     approach = resolve_approach(approach)
     isa = list(isa) if isa else I.tpu_isa()
-    key, hit = _lookup(program, graph, approach, backend, use_cache,
+    cache = _resolve_cache(cache, use_cache)
+    key, hit = _lookup(program, graph, approach, backend, cache, use_cache,
                        isa, allow_transforms)
     if hit is not None:
         _attach(hit, program, graph, approach, isa, allow_transforms)
         return hit
     ctx = CompileContext(program=program, graph=graph, approach=approach,
                          isa=isa, allow_transforms=allow_transforms,
-                         backend=backend, meta=dict(meta or {}))
+                         backend=backend, verify=verify,
+                         meta=dict(meta or {}))
     ctx.meta.setdefault("allow_transforms", allow_transforms)
     MapPass().run(ctx)
     SelectPass().run(ctx)
-    return _finish(ctx, memoize=use_cache)
+    return _finish(ctx, cache, memoize=use_cache)
 
 
 def compile_selection(selection: Selection, graph: SystemGraph,
                       approach=None, *, backend: str = "cost",
                       program: Program | None = None,
+                      verify: bool = False,
                       meta: dict | None = None) -> CompiledKernel:
-    """Schedule + Lower an existing Selection (no memo)."""
+    """Schedule + Lower an existing Selection (no caching: this is the hot
+    inner entry the search evaluators use, so the static verifier is opt-in
+    here — pass ``verify=True`` to gate)."""
     approach = resolve_approach(approach)
     ctx = CompileContext(program=program or selection.program, graph=graph,
                          approach=approach, backend=backend,
                          meta=dict(meta or {}))
     ctx.selection = selection
-    return Pipeline(passes=(SchedulePass(), LowerPass())).run(ctx)
+    passes = ((SchedulePass(), VerifyPass(), LowerPass()) if verify
+              else (SchedulePass(), LowerPass()))
+    return Pipeline(passes=passes).run(ctx)
 
 
 def _compile_frontend(frontend: str, fe_args: dict, graph, approach, backend,
-                      use_cache) -> CompiledKernel:
+                      cache, use_cache, verify: bool = True) -> CompiledKernel:
     graph = graph if graph is not None else gpu_sm(8)
     approach = resolve_approach(approach)
+    cache = _resolve_cache(cache, use_cache)
     # Frontend programs are cheap to rebuild; selections are not — key off
     # the program (+ the frontend's ISA/transform policy), select on a miss.
     program, isa, allow_transforms, _sel_builder = \
         _frontend_program(frontend, fe_args, graph)
-    key, hit = _lookup(program, graph, approach, backend, use_cache,
+    key, hit = _lookup(program, graph, approach, backend, cache, use_cache,
                        isa, allow_transforms)
     if hit is not None:
         _attach(hit, program, graph, approach, isa, allow_transforms)
@@ -188,16 +219,16 @@ def _compile_frontend(frontend: str, fe_args: dict, graph, approach, backend,
         return hit
     ctx = CompileContext(program=program, graph=graph, approach=approach,
                          isa=isa, allow_transforms=allow_transforms,
-                         backend=backend,
+                         backend=backend, verify=verify,
                          meta={"frontend": frontend,
                                "frontend_args": dict(fe_args)})
     ctx.selection = _sel_builder()
-    return _finish(ctx, memoize=use_cache)
+    return _finish(ctx, cache, memoize=use_cache)
 
 
 def _frontend_program(frontend: str, fe_args: dict, graph: SystemGraph):
     """(program, isa, allow_transforms, lazy selection builder) for one
-    workload frontend — lets a memo hit skip the (expensive) mapping +
+    workload frontend — lets a cache hit skip the (expensive) mapping +
     selection entirely while keying on the exact compile inputs."""
     if frontend == "gemm":
         prog = K.matmul(fe_args["m"], fe_args["n"], fe_args["k"])
@@ -216,25 +247,25 @@ def _frontend_program(frontend: str, fe_args: dict, graph: SystemGraph):
 
 def compile_gemm(m: int, n: int, k: int, approach=None,
                  graph: SystemGraph | None = None, *,
-                 backend: str = "cost",
-                 use_cache: bool = True) -> CompiledKernel:
+                 backend: str = "cost", cache: ArtifactCache | None = None,
+                 use_cache: bool = True, verify: bool = True) -> CompiledKernel:
     return _compile_frontend("gemm", {"m": m, "n": n, "k": k}, graph,
-                             approach, backend, use_cache)
+                             approach, backend, cache, use_cache, verify)
 
 
 def compile_gru(batch: int, hidden: int, inp: int | None = None,
                 approach=None, graph: SystemGraph | None = None, *,
-                backend: str = "cost",
-                use_cache: bool = True) -> CompiledKernel:
+                backend: str = "cost", cache: ArtifactCache | None = None,
+                use_cache: bool = True, verify: bool = True) -> CompiledKernel:
     fe_args = {"batch": batch, "hidden": hidden}
     if inp is not None:
         fe_args["inp"] = inp
     return _compile_frontend("gru", fe_args, graph, approach, backend,
-                             use_cache)
+                             cache, use_cache, verify)
 
 
 # --------------------------------------------------------------------------- #
-# Memo-hit replay
+# Cache-hit replay
 # --------------------------------------------------------------------------- #
 
 
@@ -248,9 +279,9 @@ def _attach(art: CompiledKernel, program, graph, approach, isa,
 
 
 def recompile_schedule(art: CompiledKernel) -> None:
-    """Rebuild selection + schedule for a memo-hydrated artifact (used by
+    """Rebuild selection + schedule for a cache-hydrated artifact (used by
     ``CompiledKernel.ensure_schedule``).  Deterministic: the same program,
-    graph and approach reproduce the memoized decisions exactly."""
+    graph and approach reproduce the cached decisions exactly."""
     if art.selection is None:
         fe = art.meta.get("frontend")
         if fe in _FRONTENDS:

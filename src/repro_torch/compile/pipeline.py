@@ -5,7 +5,8 @@ drives one ``CompileContext`` — an ISAMIR ``Program`` + ``SystemGraph`` +
 ``Approach`` — through the paper's stages:
 
     Program ──Map──▶ candidates ──Select──▶ Selection ──Schedule──▶
-        Schedule ──Lower──▶ tile/grid plan + lowering config
+        Schedule ──Verify──▶ (statically checked) ──Lower──▶
+        tile/grid plan + lowering config
 
 and assembles the result into a ``CompiledKernel`` artifact.  Each pass is a
 small object with ``run(ctx)``; custom pipelines can drop, replace or extend
@@ -43,6 +44,7 @@ class CompileContext:
     isa: list = field(default_factory=list)
     allow_transforms: bool = True
     backend: str = "cost"
+    verify: bool = True
     meta: dict = field(default_factory=dict)
 
     # produced by passes
@@ -102,6 +104,27 @@ class SchedulePass(Pass):
         if ctx.selection is None:
             raise CompileError("SchedulePass requires a Selection")
         ctx.schedule = schedule(ctx.selection, ctx.graph, ctx.approach)
+
+
+class VerifyPass(Pass):
+    """Static analysis gate (``repro_torch.verify``): program legality,
+    selection coverage/role consistency, and a symbolic hazard replay of the
+    schedule.  Strict by default — any error-severity diagnostic aborts the
+    compile with a ``CompileError``; set ``ctx.verify = False`` to skip."""
+
+    name = "verify"
+
+    def run(self, ctx: CompileContext) -> None:
+        if not ctx.verify:
+            return
+        from ..verify import verify_compile
+        report = verify_compile(selection=ctx.selection,
+                                schedule=ctx.schedule,
+                                approach=ctx.approach)
+        if not report.ok:
+            raise CompileError(
+                f"static verification of {ctx.program.name} failed "
+                f"({len(report.errors)} error(s)):\n{report.render()}")
 
 
 class LowerPass(Pass):
@@ -182,7 +205,8 @@ class LowerPass(Pass):
         return {"kind": "stream"}
 
 
-DEFAULT_PASSES = (MapPass(), SelectPass(), SchedulePass(), LowerPass())
+DEFAULT_PASSES = (MapPass(), SelectPass(), SchedulePass(), VerifyPass(),
+                  LowerPass())
 
 
 @dataclass

@@ -42,7 +42,10 @@
 // applies K2's epilogue.  Without split the epilogue runs on the register
 // accumulators: the f32 bias, the activation (0 none, 1 sigmoid, 2 tanh,
 // 3 relu; expf/tanhf, not the fast intrinsics, and no --use_fast_math) and
-// one rounding to the input type, with masked stores at ragged edges.
+// one rounding to the input type, with masked stores at ragged edges.  One
+// caller keeps the f32 sums of bf16 operands unrounded: K4's input
+// projection (kernels/gemm.py::projection), whose G enters the gate sums
+// in f32 as the JAX scan's x W does; the store then writes f32 (`c32`).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,11 +87,13 @@ __device__ __forceinline__ float activate(float v, int act) {
 }
 
 // Where a main loop's sums go: the final store (bias may be null, act may
-// be kNone: that is K1) or, with `partial`, slice z's f32 partial sums.
+// be kNone: that is K1; with `c32`, in f32 to c32 instead of in T to c) or,
+// with `partial`, slice z's f32 partial sums.
 struct Epi {
   const float* bias;
   int act;
   float* partial;
+  float* c32;
 };
 
 template <typename T>
@@ -101,7 +106,11 @@ __device__ __forceinline__ void store(const Epi& e, T* c, int m, int n,
     return;
   }
   if (e.bias) v += e.bias[col];
-  c[idx] = from_f32<T>(activate(v, e.act));
+  v = activate(v, e.act);
+  if (e.c32)
+    e.c32[idx] = v;
+  else
+    c[idx] = from_f32<T>(v);
 }
 
 // This block's K range [kb, ke): slice blockIdx.z of gridDim.z over the
@@ -563,17 +572,19 @@ int wgmma(int bm, int bn, int bk, const Args& x) {
 // route, tile or activation this library was not built for, or
 // kNoTensorMap (-2) when cuTensorMapEncodeTiled refused a TMA descriptor.
 //
-// dtype: 0 float32, 1 bfloat16.  route: 0 simt, 1 wgmma (bf16 only; bt is
-// then N x K bf16 scratch for B^T).  split: K slices; > 1 needs ws, an
-// S x M x N f32 scratch for the partial sums.  bias: N float32 values or
-// null; act: 0 none, 1 sigmoid, 2 tanh, 3 relu.  C = act(A @ B + bias).
-extern "C" int repro_gemm(int dtype, int route, int bm, int bn, int bk,
-                          int split, const void* a, const void* b, void* bt,
-                          const void* bias, int act, void* c, void* ws, int m,
-                          int n, int k, void* stream) {
+// dtype: 0 float32, 1 bfloat16, of A and B; c_dtype: the same, of C, which
+// is dtype or, for bf16 operands, float32 (the sums stored unrounded).
+// route: 0 simt, 1 wgmma (bf16 only; bt is then N x K bf16 scratch for
+// B^T).  split: K slices; > 1 needs ws, an S x M x N f32 scratch for the
+// partial sums.  bias: N float32 values or null; act: 0 none, 1 sigmoid,
+// 2 tanh, 3 relu.  C = act(A @ B + bias).
+extern "C" int repro_gemm(int dtype, int c_dtype, int route, int bm, int bn,
+                          int bk, int split, const void* a, const void* b,
+                          void* bt, const void* bias, int act, void* c,
+                          void* ws, int m, int n, int k, void* stream) {
   if (act < kNone || act > kRelu || split < 1 || (split > 1 && !ws) ||
-      dtype < 0 || dtype > 1 || route < 0 || route > 1 ||
-      (route == 1 && (dtype != 1 || !bt)))
+      dtype < 0 || dtype > 1 || c_dtype < 0 || c_dtype > dtype ||
+      route < 0 || route > 1 || (route == 1 && (dtype != 1 || !bt)))
     return kNoSuchKernel;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* bias_f = static_cast<const float*>(bias);
@@ -582,8 +593,10 @@ extern "C" int repro_gemm(int dtype, int route, int bm, int bn, int bk,
         static_cast<const bf16*>(b), static_cast<bf16*>(bt), k, n);
     if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
   }
-  const Epi epi = split > 1 ? Epi{nullptr, kNone, static_cast<float*>(ws)}
-                            : Epi{bias_f, act, nullptr};
+  float* c32 = dtype != c_dtype ? static_cast<float*>(c) : nullptr;
+  const Epi epi = split > 1
+                      ? Epi{nullptr, kNone, static_cast<float*>(ws), nullptr}
+                      : Epi{bias_f, act, nullptr, c32};
   const Args x{a, route == 1 ? bt : b, c, epi, m, n, k, split, s};
   const int status = route == 1 ? wgmma(bm, bn, bk, x)
                      : dtype == 0 ? simt<float>(bm, bn, bk, x)
@@ -593,7 +606,7 @@ extern "C" int repro_gemm(int dtype, int route, int bm, int bn, int bk,
   const int blocks = static_cast<int>(mn < 132LL * 8 * 256 ? (mn + 255) / 256
                                                            : 132LL * 8);
   const auto* parts = static_cast<const float*>(ws);
-  if (dtype == 0)
+  if (c_dtype == 0)
     reduce_kernel<float><<<blocks, 256, 0, s>>>(parts, split, bias_f, act,
                                                 static_cast<float*>(c), m, n);
   else

@@ -24,6 +24,10 @@ a launch's output tiles are fewer than the card's SMs, K is split
 reduce kernel sums them in slice order and applies the epilogue.  One C
 call launches the whole sequence; ``gemm_transpose`` and ``gemm_reduce``
 count the transposing passes and reduces it ran.
+
+``projection`` is K2 without its rounding: A @ B + bias stored in f32 for
+f32 or bf16 operands.  It is K4's input projection (``gru.gru_seq``), and
+counts as a ``gemm_bias_act`` launch.
 """
 from __future__ import annotations
 
@@ -39,6 +43,8 @@ from ..core.sysgraph import GPU_SMS_PER_CLUSTER
 from .cuda import check, library, ptxas_report, stream_handle
 from .ref import gemm_bias_act_ref, gemm_ref
 
+#: operand dtypes of the CUDA kernels, as the C entries' ``dtype`` arguments
+#: (``csrc/gemm.cu`` and ``csrc/gru.cu``)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: K2's activations, as the kernel's ``act`` argument
 ACTS = {"": 0, "sigmoid": 1, "tanh": 2, "relu": 3}
@@ -209,9 +215,9 @@ def tuned_block(m: int, n: int, k: int) -> tuple[int, int, int] | None:
     return None if rec is None else clamp_tile(rec.tile, m, n, k)
 
 
-#: the C entry of ``csrc/gemm.cu``: dtype, route, BM, BN, BK, split; A, B,
-#: Bt scratch, bias, act; C, workspace; m, n, k; stream
-_ARGTYPES = ([ctypes.c_int] * 6 + [ctypes.c_void_p] * 4 + [ctypes.c_int]
+#: the C entry of ``csrc/gemm.cu``: dtype, C's dtype, route, BM, BN, BK,
+#: split; A, B, Bt scratch, bias, act; C, workspace; m, n, k; stream
+_ARGTYPES = ([ctypes.c_int] * 7 + [ctypes.c_void_p] * 4 + [ctypes.c_int]
              + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
@@ -282,22 +288,26 @@ def _check_operands(name: str, a: torch.Tensor, b: torch.Tensor, tile
 
 def _launch(name: str, a: torch.Tensor, b: torch.Tensor,
             bias: torch.Tensor | None, fn: str, route: Route,
-            tile: tuple[int, int, int]) -> torch.Tensor:
+            tile: tuple[int, int, int],
+            out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """One CUDA call of K1 or K2: one C call launches [the transposing pass
     of B], the main loop and [the split-K reduce]; both scratch buffers
-    (Bt, the f32 partials) come from one allocation."""
+    (Bt, the f32 partials) come from one allocation.  C is in
+    ``out_dtype``: the input type (default) or f32."""
     m, k = a.shape
     n = b.shape[1]
     dev = a.device
+    out_dtype = out_dtype or a.dtype
     split = split_k(m, n, k, tile, device_sms(dev))
-    c = torch.empty((m, n), dtype=a.dtype, device=dev)
+    c = torch.empty((m, n), dtype=out_dtype, device=dev)
     bt_bytes = -(-2 * n * k // 256) * 256 if route is WGMMA else 0
     ws_bytes = 4 * split * m * n if split > 1 else 0
     scratch = torch.empty(bt_bytes + ws_bytes, dtype=torch.uint8, device=dev) \
         if bt_bytes + ws_bytes else None
     base = scratch.data_ptr() if scratch is not None else 0
     check(_kernel()(
-        DTYPES[a.dtype], route.code, *tile, split, a.data_ptr(), b.data_ptr(),
+        DTYPES[a.dtype], DTYPES[out_dtype], route.code, *tile, split,
+        a.data_ptr(), b.data_ptr(),
         base if bt_bytes else None,
         None if bias is None else bias.data_ptr(), ACTS[fn], c.data_ptr(),
         base + bt_bytes if ws_bytes else None, m, n, k, stream_handle(dev)),
@@ -325,6 +335,19 @@ def gemm_bias_act(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
     bf16, and bias (N,) in f32 or that dtype; ``fn`` is one of "",
     "sigmoid", "tanh", "relu".  The sum, the bias and the activation are
     f32; the result is rounded to the input type once."""
+    return _bias_act(a, b, bias, fn, tile, a.dtype)
+
+
+def projection(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
+               tile: tuple[int, int, int] | None = None) -> torch.Tensor:
+    """A @ B + bias in f32, unrounded, for A (M, K), B (K, N) of one dtype,
+    f32 or bf16: K2's launch (its route, tile and split) with an f32 store,
+    counted as a ``gemm_bias_act`` launch."""
+    return _bias_act(a, b, bias, "", tile, torch.float32)
+
+
+def _bias_act(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor, fn: str,
+              tile, out_dtype: torch.dtype) -> torch.Tensor:
     if fn not in ACTS:
         raise ValueError(f"gemm_bias_act activation {fn!r}: need one of "
                          f"{list(ACTS)}")
@@ -336,9 +359,9 @@ def gemm_bias_act(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
                          f"{bias.dtype} on {bias.device}: need ({n},) in "
                          f"float32 or {a.dtype} on {a.device}")
     if a.device.type == "cpu":
-        return gemm_bias_act_ref(a, b, bias, fn)
+        return gemm_bias_act_ref(a, b, bias, fn, out_dtype)
     c = _launch("gemm_bias_act", a, b, bias.float().contiguous(), fn, route,
-                tile)
+                tile, out_dtype)
     gemm_bias_act.launches += 1
     return c
 

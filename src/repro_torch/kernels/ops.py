@@ -147,14 +147,18 @@ def scheduled_gemm(a: torch.Tensor, b: torch.Tensor,
 def scheduled_gru(xs: torch.Tensor, h0: torch.Tensor, gru,
                   graph: SystemGraph | None = None) -> torch.Tensor:
     """GRU sequence xs [T, B, E] from h0 [B, H] with the weights of ``gru``
-    (a ``FusedGRU``).  The input projection of all T steps is a
-    (T B, 3H, E) GEMM, and K2 runs it at the tile ``plan_gemm`` gives: the
-    tuning cache's record where there is one, else the compilation
-    driver's plan."""
+    (a ``FusedGRU``).  On K4's persistent route the input projection of all
+    T steps is a (T B, 3H, E) GEMM, and K2 runs it at the tile
+    ``plan_gemm`` gives: the tuning cache's record where there is one, else
+    the compilation driver's plan.  On its step route K3 runs each step at
+    the tile of the compiler's GRU plan (``gru_tile``)."""
     steps, batch, inp = xs.shape
-    cfg, _ = plan_gemm(steps * batch, 3 * h0.shape[1], inp, dtype=xs.dtype,
+    hidden = h0.shape[1]
+    cfg, _ = plan_gemm(steps * batch, 3 * hidden, inp, dtype=xs.dtype,
                        graph=graph)
-    return gru_seq(xs, h0, gru.params(), proj_tile=cfg.tile)
+    block, _ = plan_gru(batch, hidden, inp, graph=graph)
+    return gru_seq(xs, h0, gru.params(), proj_tile=cfg.tile,
+                   step_tile=gru_tile(block))
 
 
 __all__ = [

@@ -24,10 +24,12 @@ ACTIVATIONS = {"": lambda x: x, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
 
 
 def gemm_bias_act_ref(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
-                      fn: str = "") -> torch.Tensor:
+                      fn: str = "", out_dtype: torch.dtype | None = None
+                      ) -> torch.Tensor:
     """act(A @ B + bias): product, bias and activation in f32, one cast to
-    the input type at the end."""
-    return ACTIVATIONS[fn](a.float() @ b.float() + bias.float()).to(a.dtype)
+    ``out_dtype`` (default: the input type) at the end."""
+    return ACTIVATIONS[fn](a.float() @ b.float() + bias.float()).to(
+        out_dtype or a.dtype)
 
 
 def k_slices(k: int, bk: int, split: int) -> list[tuple[int, int]]:
@@ -121,8 +123,9 @@ def gru_seq_ref(xs: torch.Tensor, h0: torch.Tensor, params: dict
 def gru_seq_hoisted_ref(xs: torch.Tensor, h0: torch.Tensor, params: dict
                         ) -> torch.Tensor:
     """K4 as the port computes it: G = xs [T B, E] @ [Wr|Wz|Wn] +
-    [br|bz|bnx] from one product for all steps, then the recurrence on
-    h [Ur|Uz|Un], with bnh inside r (..)."""
+    [br|bz|bnx] from one product for all steps, kept in f32, then the
+    recurrence on h [Ur|Uz|Un], with bnh inside r (..), and h rounded to
+    the input type after every step, as the JAX scan carries it."""
     dtype = xs.dtype
     T, B, E = xs.shape
     H = h0.shape[1]
@@ -137,5 +140,5 @@ def gru_seq_hoisted_ref(xs: torch.Tensor, h0: torch.Tensor, params: dict
         r = torch.sigmoid(g[t, :, :H] + hu[:, :H])
         z = torch.sigmoid(g[t, :, H:2 * H] + hu[:, H:2 * H])
         n = torch.tanh(g[t, :, 2 * H:] + r * (hu[:, 2 * H:] + p["bnh"]))
-        h = (1 - z) * n + z * h
+        h = ((1 - z) * n + z * h).to(dtype).float()
     return h.to(dtype)

@@ -16,11 +16,11 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.gemm import (ACTS, block_tile, device_sms, gemm,
                                       gemm_bias_act, gemm_launch, gemm_route,
                                       gemm_reduce, gemm_transpose,
-                                      operand_route)
+                                      operand_route, projection)
 from repro_torch.kernels.gru import (PARAM_NAMES, TILE_B, TILE_H, FusedGRU,
                                      _recurrence, device_smem, device_split,
                                      gru_cell, gru_cell_reduce, gru_seq,
-                                     gru_seq_launch, pack_w,
+                                     gru_seq_launch, pack_w, seq_route,
                                      step_blocks_per_sm, step_route)
 from repro_torch.kernels.ops import scheduled_gemm, scheduled_gru
 from repro_torch.search.evaluate import MeasuredGemmEvaluator
@@ -354,6 +354,128 @@ def test_gru_library_constants_and_occupancy(cuda_device):
                 assert 1 <= per_sm <= 8
     with pytest.raises(ValueError):
         step_blocks_per_sm((8, 8), "vec4", cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+def test_projection_stores_f32_sums_on_card(cuda_device, tdt):
+    """K4's projection: K2's launch with an f32 store of the unrounded sums,
+    whatever the operands' dtype.  Integer inputs make every sum exact, so
+    it equals the plain version bit for bit on both routes, split or not;
+    the store is f32, not the operands' type."""
+    rng = np.random.default_rng(15)
+    routes = set()
+    for m, n, k in [(130, 70, 256), (64, 24, 64), (4096, 96, 248)]:
+        a = to_torch(rng.integers(-4, 5, (m, k)).astype(np.float32), tdt,
+                     cuda_device)
+        b = to_torch(rng.integers(-4, 5, (k, n)).astype(np.float32), tdt,
+                     cuda_device)
+        bias = to_torch(rng.integers(-4, 5, (n,)).astype(np.float32) + 0.25,
+                        tdt, cuda_device)
+        a_odd = torch.empty(m * k + 1, dtype=tdt,
+                            device=cuda_device)[1:].view(m, k)
+        a_odd.copy_(a)
+        for x in (a, a_odd):
+            route = operand_route(x, b)
+            routes.add(route.name)
+            want = ref.gemm_bias_act_ref(x, b, bias, "", torch.float32)
+            for tile in ROUTE_TILES[route.name]:
+                _, (t, r) = expected_launch(x, b, tile)
+                before = counts()
+                got = projection(x, b, bias, tile=tile)
+                torch.cuda.synchronize()
+                assert counts() == (before[0], before[1] + 1, before[2] + t,
+                                    before[3] + r)
+                assert got.dtype == torch.float32
+                np.testing.assert_array_equal(
+                    as_f32(got), as_f32(want),
+                    err_msg=f"{route.name} {(m, n, k)} {tile}")
+    assert routes == ({"simt", "wgmma"} if tdt == torch.bfloat16
+                      else {"simt"})
+
+
+def bf16_operands(rng, T, B, E, H, device):
+    p, xs, h0 = gru_operands(rng, T, B, E, H, device)
+    return ({n: v.to(torch.bfloat16) for n, v in p.items()},
+            xs.to(torch.bfloat16), h0.to(torch.bfloat16))
+
+
+BF16_TOL = TOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,B,E,H,tile", [
+    (6, 20, 72, 200, (32, 64)), (5, 3, 12, 50, (16, 16)),
+    (4, 17, 40, 33, (32, 32)), (9, 32, 512, 512, (32, 64)),
+    (3, 16, 1536, 1536, (16, 64)), (3, 32, 1792, 1792, (32, 16)),
+    (4, 5, 20, 36, (16, 32)), (3, 8, 64, 3072, (16, 64)),
+    (3, 65, 24, 200, (16, 32))])
+def test_gru_bf16_kernels_on_card(cuda_device, T, B, E, H, tile):
+    """bf16 K3 and K4 against their plain versions at JAX's bf16 tolerance
+    (2e-2), on both copy routes of each (H % 4 != 0; H % 8 != 0), with U
+    resident (all of it up to H = 1792 in bf16), partly resident (3072) and
+    in groups of rows (65); the same bits from two runs; a sequence
+    launches K2's projection and the persistent kernel, no K3."""
+    rng = np.random.default_rng(T + B + E + H)
+    p, xs, h0 = bf16_operands(rng, T, B, E, H, cuda_device)
+    assert seq_route(B, E, H, torch.bfloat16, device_sms(cuda_device),
+                     device_smem(cuda_device)) == "persistent"
+    launch = gru_seq_launch(B, E, H, device_sms(cuda_device),
+                            device_smem(cuda_device), torch.bfloat16)
+    assert (launch.rows_on_chip < H) == (H == 3072)
+    route = step_route(E, H)
+    split = device_split(B, E, H, tile, cuda_device, route, torch.bfloat16)
+    before = gru_counts()
+    cells = [gru_cell(xs[0], h0, p, tile=tile) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert gru_counts() == (before[0] + 2, before[1] + 2 * (split > 1),
+                            before[2], before[3])
+    assert cells[0].dtype == torch.bfloat16
+    np.testing.assert_array_equal(as_f32(cells[0]), as_f32(cells[1]))
+    np.testing.assert_allclose(as_f32(cells[0]),
+                               as_f32(ref.gru_cell_ref(xs[0], h0, p)),
+                               **BF16_TOL)
+    np.testing.assert_allclose(
+        as_f32(cells[0]),
+        as_f32(ref.gru_cell_split_ref(xs[0], h0, p, 32, split)), **BF16_TOL)
+    before = gru_counts()
+    seqs = [gru_seq(xs, h0, p) for _ in range(2)]
+    torch.cuda.synchronize()
+    groups = -(-B // launch.batch)
+    assert gru_counts() == (before[0], before[1], before[2] + 2 * groups,
+                            before[3] + 2)
+    assert seqs[0].dtype == torch.bfloat16
+    np.testing.assert_array_equal(as_f32(seqs[0]), as_f32(seqs[1]))
+    np.testing.assert_allclose(as_f32(seqs[0]),
+                               as_f32(ref.gru_seq_ref(xs, h0, p)),
+                               **BF16_TOL)
+    np.testing.assert_allclose(as_f32(seqs[0]),
+                               as_f32(ref.gru_seq_hoisted_ref(xs, h0, p)),
+                               **BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [9505, 12288])
+def test_gru_seq_step_route_above_the_persistent_limit(cuda_device, H):
+    """Where no block of the persistent kernel holds its share of a step
+    (f32, B = 8, H > 9504 on an H100), the sequence runs as T launches of
+    K3, within the GRU-sequence tolerance of its plain version."""
+    rng = np.random.default_rng(H)
+    T, B, E = 3, 8, 512
+    p, xs, h0 = gru_operands(rng, T, B, E, H, cuda_device)
+    sms, smem = device_sms(cuda_device), device_smem(cuda_device)
+    assert seq_route(B, E, H, torch.float32, sms, smem) == "step"
+    with pytest.raises(ValueError, match="shared memory"):
+        gru_seq_launch(B, E, H, sms, smem)
+    before = gru_counts()
+    got = gru_seq(xs, h0, p)
+    torch.cuda.synchronize()
+    after = gru_counts()
+    assert (after[0] - before[0], after[2] - before[2],
+            after[3] - before[3]) == (T, 0, 0)
+    np.testing.assert_allclose(as_f32(got),
+                               as_f32(ref.gru_seq_ref(xs, h0, p)),
+                               rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.gpu

@@ -1,7 +1,8 @@
 """K3's and K4's launch plans on the CPU: the split step's partial sums and
 the hoisted sequence against the JAX package's Pallas kernels (interpret
-mode), K3's split rule and route, K4's partition of the card, and the
-packing of K4's operands."""
+mode), in f32 and bf16, K3's split rule and route, K4's route rule and its
+partition of the card (for f32 and bf16 operands), the step route's plain
+path, and the packing of K4's operands."""
 import ctypes
 import re
 
@@ -16,16 +17,18 @@ from repro.kernels.gru import gru_seq as jax_gru_seq
 from repro_torch.kernels import ref
 from repro_torch.kernels.cuda import CSRC, MAX_SMEM_BYTES
 from repro_torch.kernels.gemm import H100_SMS
+from repro_torch.kernels import gru as gru_mod
 from repro_torch.kernels.gru import (C_CONSTANTS, CONSTANTS_ARGTYPES,
                                      OCCUPANCY_ARGTYPES, PARAM_NAMES,
                                      SEQ_ARGTYPES, SEQ_KC, SEQ_MAX_B,
                                      SEQ_MAX_LANES, SEQ_RB, SEQ_STAGES,
                                      SEQ_THREADS, STEP_ARGTYPES,
                                      STEP_BLOCKS_PER_SM, STEP_KC, TILE_B,
-                                     TILE_H, gru_seq, gru_seq_launch,
-                                     gru_split, pack_u, pack_w, split_cost,
-                                     step_route)
-from repro_torch.kernels.ops import gru_tile, plan_gru
+                                     TILE_H, FusedGRU, gru_cell, gru_seq,
+                                     gru_seq_launch, gru_seq_steps,
+                                     gru_split, pack_u, pack_w, seq_route,
+                                     split_cost, step_route)
+from repro_torch.kernels.ops import gru_tile, plan_gru, scheduled_gru
 
 DEEPBENCH_GRU = [(32, 512), (32, 1024), (16, 1536), (32, 1792)]
 #: ragged (B, E, H): batch not a multiple of 4, E != H, H not a multiple
@@ -33,6 +36,7 @@ DEEPBENCH_GRU = [(32, 512), (32, 1024), (16, 1536), (32, 1792)]
 RAGGED = [(1, 5, 7), (3, 12, 50), (17, 40, 33), (3, 70, 130)]
 CELL_TOL = dict(rtol=1e-5, atol=1e-5)       # tests/test_kernels.py
 SEQ_TOL = dict(rtol=1e-4, atol=1e-5)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)       # tests/test_kernels.py, bf16
 
 
 def rand(rng, shape):
@@ -49,8 +53,24 @@ def torch_params(p):
     return {n: torch.from_numpy(v) for n, v in p.items()}
 
 
-def jax_params(p):
-    return {n: jnp.asarray(v) for n, v in p.items()}
+def jax_params(p, dtype=jnp.float32):
+    return {n: jnp.asarray(v, dtype=dtype) for n, v in p.items()}
+
+
+#: the operand dtypes of both packages: f32, and bf16 (both round the same
+#: f32 numpy values to nearest even, so they start from the same bits)
+DTYPES = [(torch.float32, jnp.float32, SEQ_TOL),
+          (torch.bfloat16, jnp.bfloat16, BF16_TOL)]
+DTYPE_IDS = ["f32", "bf16"]
+
+
+def both(x, tdt, jdt):
+    return torch.from_numpy(x).to(tdt), jnp.asarray(x, dtype=jdt)
+
+
+def as_np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor)
+                      else x.astype(jnp.float32))
 
 
 # --------------------------------------------------------------------------- #
@@ -119,6 +139,100 @@ def test_hoisted_sequence_matches_pallas(T, B, E, H):
     torch.testing.assert_close(
         gru_seq(torch.from_numpy(xs), torch.from_numpy(h0), torch_params(p)),
         torch.from_numpy(got), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("tdt,jdt,tol", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("B,E,H", RAGGED + [(8, 64, 64)])
+def test_cell_matches_pallas_in_dtype(tdt, jdt, tol, B, E, H):
+    """The port's ``gru_cell`` (its CPU path) against the JAX Pallas kernel
+    in interpret mode, in f32 and bf16: the output in the operand dtype,
+    within JAX's tolerance of that dtype (for f32 the step's 1e-5)."""
+    rng = np.random.default_rng(B + 3 * E + H)
+    p = make_params(rng, E, H)
+    x, h = rand(rng, (B, E)), rand(rng, (B, H))
+    (tx, jx), (th, jh) = both(x, tdt, jdt), both(h, tdt, jdt)
+    tp = {n: v.to(tdt) for n, v in torch_params(p).items()}
+    got = gru_cell(tx, th, tp, tile=(16, 16))
+    want = jax_gru_cell(jx, jh, jax_params(p, jdt), block=(4, 32),
+                        interpret=True)
+    assert got.dtype == tdt and want.dtype == jdt
+    np.testing.assert_allclose(as_np(got), as_np(want),
+                               **(CELL_TOL if tdt == torch.float32 else tol))
+
+
+@pytest.mark.parametrize("tdt,jdt,tol", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("T,B,E,H", [(5, 3, 12, 50), (4, 17, 40, 33),
+                                     (12, 8, 64, 64)])
+def test_sequence_routes_match_pallas_in_dtype(tdt, jdt, tol, T, B, E, H):
+    """Both routes' plain paths against the JAX ``gru_seq`` (a scan of the
+    Pallas kernel, interpret mode), in f32 and bf16: the persistent route's
+    hoisted version (``gru_seq`` on a CPU tensor, G kept in f32, h rounded
+    to the operand type every step) and the step route's loop of K3
+    (``gru_seq_steps``)."""
+    rng = np.random.default_rng(T + B + E + H)
+    p = make_params(rng, E, H)
+    xs, h0 = rand(rng, (T, B, E)), rand(rng, (B, H))
+    (txs, jxs), (th0, jh0) = both(xs, tdt, jdt), both(h0, tdt, jdt)
+    tp = {n: v.to(tdt) for n, v in torch_params(p).items()}
+    want = jax_gru_seq(jxs, jh0, jax_params(p, jdt), block=(4, 32),
+                       interpret=True)
+    assert seq_route(B, E, H, tdt) == "persistent"
+    for got in (gru_seq(txs, th0, tp), gru_seq_steps(txs, th0, tp)):
+        assert got.dtype == tdt
+        np.testing.assert_allclose(as_np(got), as_np(want), **tol)
+
+
+def test_bf16_sequence_rounds_h_every_step():
+    """The hoisted plain version carries h in bf16 between steps, as the
+    JAX scan does: it equals the loop of bf16 steps, which a sequence that
+    kept h in f32 would not."""
+    rng = np.random.default_rng(21)
+    T, B, E, H = 16, 4, 24, 40
+    p = {n: v.to(torch.bfloat16)
+         for n, v in torch_params(make_params(rng, E, H)).items()}
+    xs = torch.from_numpy(rand(rng, (T, B, E))).bfloat16()
+    h0 = torch.from_numpy(rand(rng, (B, H))).bfloat16()
+    got = ref.gru_seq_hoisted_ref(xs, h0, p)
+    np.testing.assert_allclose(as_np(got), as_np(ref.gru_seq_ref(xs, h0, p)),
+                               rtol=1e-2, atol=1e-2)
+    fp = {n: v.float() for n, v in p.items()}
+    h = h0.float()
+    for x in xs:                            # the same steps, h kept in f32
+        h = ref.gru_cell_ref(x.float(), h, fp)
+    assert not torch.equal(got, h.bfloat16())
+
+
+def test_gru_seq_takes_the_step_route_where_the_rule_says(monkeypatch):
+    """``gru_seq`` asks ``seq_route`` before anything runs; on ``step`` it
+    runs the loop of K3 (here its plain version on the CPU)."""
+    rng = np.random.default_rng(22)
+    T, B, E, H = 4, 3, 12, 20
+    p = torch_params(make_params(rng, E, H))
+    xs = torch.from_numpy(rand(rng, (T, B, E)))
+    h0 = torch.from_numpy(rand(rng, (B, H)))
+    asked = []
+
+    def step(*args):
+        asked.append(args)
+        return "step"
+
+    monkeypatch.setattr(gru_mod, "seq_route", step)
+    got = gru_seq(xs, h0, p)
+    assert asked == [(B, E, H, torch.float32, H100_SMS, MAX_SMEM_BYTES)]
+    torch.testing.assert_close(got, gru_seq_steps(xs, h0, p), rtol=0, atol=0)
+    torch.testing.assert_close(got, ref.gru_seq_ref(xs, h0, p), rtol=0,
+                               atol=0)
+
+
+def test_fused_gru_carries_bf16_parameters():
+    rng = np.random.default_rng(23)
+    p = make_params(rng, 6, 10)
+    model = FusedGRU.from_numpy(p, device="cpu", dtype=torch.bfloat16)
+    for n in PARAM_NAMES:
+        assert getattr(model, n).dtype == torch.bfloat16
+        torch.testing.assert_close(getattr(model, n),
+                                   torch.from_numpy(p[n]).bfloat16(),
+                                   rtol=0, atol=0)
 
 
 def test_projection_folds_bnx_but_not_bnh():
@@ -277,6 +391,129 @@ def test_ragged_partition(B, E, H, sms, smem):
             or least_smem(rows, cols) > smem
     if least_smem(ln.batch, cols) > smem:
         assert ln.rows_on_chip == ln.hp
+
+
+def c_seq_smem_bytes(B, cpb, rows_res, lanes, hp, esize):
+    """``csrc/gru.cu``'s seq_smem_bytes, the layout its C entry demands,
+    transcribed: the resident panel rows rounded up to 16 bytes, then the
+    larger of the ring (h rows of SEQ_KC + a 16-byte pad, and U rows where
+    not all resident) and the k-lanes' f32 sums."""
+    rg, row = -(-B // SEQ_RB), 3 * cpb
+    stage = rg * SEQ_RB * (SEQ_KC + 16 // esize) \
+        + (SEQ_KC * row if rows_res < hp else 0)
+    ring = SEQ_STAGES * stage * esize
+    red = 4 * lanes * cpb * rg * 3 * SEQ_RB
+    return -(-rows_res * row * esize // 16) * 16 + max(ring, red)
+
+
+def test_seq_smem_bytes_is_transcribed_from_the_source():
+    src = (CSRC / "gru.cu").read_text()
+    body = re.search(r"static long long seq_smem_bytes\((.*?)\n\}", src,
+                     re.S).group(1)
+    for piece in ("kSeqKC + 16 / esize", "kSeqStages * stage * esize",
+                  "4LL * lanes * cpb * rg * 3 * kSeqRB",
+                  "(rows_res * row * esize + 15) / 16 * 16"):
+        assert piece in body
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,E,H", [(b, h, h) for b, h in DEEPBENCH_GRU]
+                         + RAGGED + [(65, 8, 200), (8, 512, 3072),
+                                     (8, 512, 9504), (64, 16, 19536)])
+def test_partition_fits_seq_smem_bytes(dtype, B, E, H):
+    """Every partition, f32 or bf16, gives the C entry exactly the shared
+    memory its layout asks for, within the card's limit."""
+    if seq_route(B, E, H, dtype) == "step":
+        assert dtype == torch.float32 and H == 19536
+        return
+    ln = gru_seq_launch(B, E, H, dtype=dtype)
+    esize = dtype.itemsize
+    assert ln.smem_bytes == c_seq_smem_bytes(ln.batch, ln.cols,
+                                             ln.rows_on_chip, ln.lanes,
+                                             ln.hp, esize) <= MAX_SMEM_BYTES
+    assert ln.u_bytes == esize * 3 * H * H
+    assert ln.u_bytes_on_chip == esize * 3 * H * min(ln.rows_on_chip, H)
+    if ln.rows_on_chip < ln.hp:      # not one chunk more would fit
+        assert c_seq_smem_bytes(ln.batch, ln.cols,
+                                ln.rows_on_chip + SEQ_KC, ln.lanes, ln.hp,
+                                esize) > MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("batch,hidden", DEEPBENCH_GRU)
+def test_bf16_deepbench_partition_keeps_all_of_u(batch, hidden):
+    """Half the bytes a panel row: in bf16 every DeepBench width keeps its
+    whole U panel in shared memory, on the same 128 blocks as f32."""
+    f32 = gru_seq_launch(batch, hidden, hidden)
+    bf16 = gru_seq_launch(batch, hidden, hidden, dtype=torch.bfloat16)
+    assert (bf16.blocks, bf16.cols, bf16.batch, bf16.hp) == \
+        (f32.blocks, f32.cols, f32.batch, f32.hp) == \
+        (128, -(-hidden // H100_SMS), batch, hidden)
+    assert bf16.rows_on_chip == hidden and bf16.u_bytes_on_chip == bf16.u_bytes
+    assert 2 * bf16.u_bytes == f32.u_bytes
+
+
+@pytest.mark.parametrize("B", [1, 8, 64, 300])
+@pytest.mark.parametrize("dtype,last", [(torch.float32, 9504),
+                                        (torch.bfloat16, 19536)],
+                         ids=["f32", "bf16"])
+def test_seq_route_boundary(B, dtype, last):
+    """On an H100 the persistent kernel places any batch (groups of rows,
+    down to SEQ_RB) up to H = 9504 in f32 and 19536 in bf16; one column
+    more a block, and the sequence takes the step route."""
+    assert seq_route(B, 512, last, dtype) == "persistent"
+    assert gru_seq_launch(B, 512, last, dtype=dtype).batch == min(B, SEQ_RB)
+    assert seq_route(B, 512, last + 1, dtype) == "step"
+    with pytest.raises(ValueError, match="shared memory"):
+        gru_seq_launch(B, 512, last + 1, dtype=dtype)
+    # a pure function of the shapes and the card
+    assert seq_route(B, 512, last, dtype, H100_SMS, MAX_SMEM_BYTES) == \
+        "persistent"
+    assert seq_route(B, 512, 64, dtype, sms=1) == "persistent"
+    assert seq_route(B, 512, 1024, dtype, sms=1) == "step"     # threads
+
+
+@pytest.mark.parametrize("batch,hidden", DEEPBENCH_GRU + [(8, 10240),
+                                                           (1, 12288)])
+def test_route_at_deepbench_and_wide_sizes(batch, hidden):
+    want = "step" if hidden > 9504 else "persistent"
+    assert seq_route(batch, hidden, hidden) == want
+    assert seq_route(batch, hidden, hidden, torch.bfloat16) == "persistent"
+
+
+def test_step_route_runs_k3_at_the_compilers_tile(monkeypatch):
+    """Through ``FusedGRU`` (``ops.scheduled_gru``) the step route launches
+    K3 once a step at the tile of the compiler's GRU plan."""
+    rng = np.random.default_rng(24)
+    T, B, E, H = 3, 8, 16, 40
+    p = make_params(rng, E, H)
+    xs = torch.from_numpy(rand(rng, (T, B, E)))
+    h0 = torch.from_numpy(rand(rng, (B, H)))
+    tiles = []
+    real = gru_mod.gru_cell
+
+    def cell(x, h, params, tile, out=None):
+        tiles.append(tuple(tile))
+        return real(x, h, params, tile, out)
+
+    monkeypatch.setattr(gru_mod, "seq_route", lambda *a: "step")
+    monkeypatch.setattr(gru_mod, "gru_cell", cell)
+    got = scheduled_gru(xs, h0, FusedGRU.from_numpy(p, device="cpu"))
+    want_tile = gru_tile(plan_gru(B, H, E)[0])
+    assert tiles == [want_tile] * T
+    torch.testing.assert_close(got, ref.gru_seq_ref(xs, h0, torch_params(p)),
+                               rtol=0, atol=0)
+
+
+def test_split_cost_weighs_partials_against_the_weights_bytes():
+    """bf16 weights are half the bytes of f32 ones, and the f32 partials
+    are not: a split costs relatively more in bf16, nothing without one."""
+    assert split_cost(32, 1792, 1792, 112, 1, esize=2) == \
+        split_cost(32, 1792, 1792, 112, 1)
+    assert split_cost(32, 1792, 1792, 112, 7, esize=2) > \
+        split_cost(32, 1792, 1792, 112, 7)
+    assert gru_split(32, 1792, 1792, (32, 64)) == \
+        gru_split(32, 1792, 1792, (32, 64), H100_SMS, STEP_BLOCKS_PER_SM, 4)
 
 
 def test_partition_rejects_what_the_kernel_cannot_take():

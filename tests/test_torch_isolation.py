@@ -35,8 +35,10 @@ def test_importing_the_port_loads_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     for name in ("core.scheduler", "core.transforms", "compile.keys",
-                 "compile.driver", "kernels.gemm", "kernels.gru",
-                 "kernels.ops", "kernels.cuda"):
+                 "compile.driver", "compile.cache", "verify",
+                 "verify.diagnostics", "verify.program", "verify.selection",
+                 "verify.schedule", "verify.artifact", "kernels.gemm",
+                 "kernels.gru", "kernels.ops", "kernels.cuda"):
         assert f"repro_torch.{name}" in res["modules"]
 
 
