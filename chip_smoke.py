@@ -18,7 +18,13 @@ launch the hand-written CUDA kernels with the plan.
    artifact is checked again by ``verify_artifact``.  A second pass with the in-process memo cleared and
    the cache read back from its file must compile nothing fresh and give
    the same artifacts (``to_dict`` but ``meta``).
-4. Three phases of the main path, each with every launch counter set to 0
+   Then the graph tier's compiles: whisper-medium's decoder block (one
+   layer at full width: D = 1024, 16 heads of 64, F = 4096; T = 8) and its
+   trace config (D = 32), each unfused and fused (``fuse_epilogues``),
+   traced and compiled with ``compile_graph`` against ``gpu_sm(8)`` through
+   the same strict pipeline into the same cache; a second pass with the
+   memo cleared must compile nothing fresh (``graph_compile`` line).
+4. Four phases of the main path, each with every launch counter set to 0
    just before it and read just after (one ``launches`` line each):
 
    * ``plan`` — with an empty tuning cache as the default, so the tile is
@@ -42,7 +48,13 @@ launch the hand-written CUDA kernels with the plan.
    * ``tuned`` — with that cache as the default: ``scheduled_gemm`` on the
      8 GEMMs in f32 and bf16 (K1 at the tuned tile), and ``gemm_bias_act``
      (K2, ``tile=None``: the tuned tile) on the 8 GEMMs x {"", sigmoid,
-     tanh, relu} x {f32, bf16} with bias uniform(-1, 1).
+     tanh, relu} x {f32, bf16} with bias uniform(-1, 1);
+   * ``graph`` — the four compiled blocks run on the card
+     (``CompiledGraph.execute``) on the tracer's ternary inputs
+     (``block_inputs``): each ``pallas_gpu_gemm`` node is one K1 launch at
+     the compiled plan's tile (``simt``, f32), each other node runs its
+     program through ``interpret_program`` in float64 on the card; K1's
+     launches must equal the graph's ``pallas_gpu_gemm`` nodes.
 
    K1 and K2 run on the main loop their dtype and K take (``wgmma``: bf16
    after one transposing pass of B; ``simt``: f32), with split-K where the
@@ -69,7 +81,17 @@ launch the hand-written CUDA kernels with the plan.
    projection, recurrence and the rest: packing copies and a memset).  The
    ``gru_bf16`` lines give the same for the bf16 step and sequence, beside
    ``torch.gru_cell`` and cuDNN's ``nn.GRU`` in bf16; the ``gru_step_route``
-   line times the wide f32 sequence.
+   line times the wide f32 sequence.  One ``graph`` line per compiled block:
+   its nodes, K1 launches and stream nodes; every tensor it produced held
+   against the torch float64 reference (``models.traceable.
+   block_reference``, on the card): bit-exact where the reference's
+   magnitude stays below 2^24, else within rtol 1e-5 and atol 1e-5 *
+   max|ref| (the trace config must be bit-exact throughout); ``execute``
+   event-timed (5 calls), and split by node kind (``node_ms``: each node
+   rerun alone, event-timed, summed over the K1 nodes and the stream
+   nodes), K1's and the rest's device time in one call (profiler), the
+   reference's time, and the same block in eager torch f32
+   (``torch.matmul``, TF32 off) as the library yardstick.
 6. Prints the ``kernels`` line and, last, the device line.  Exits non-zero,
    before the device line, when a comparison fails, a kernel of a phase was
    never launched in it, a bf16 DeepBench GEMM did not take the wgmma route
@@ -79,7 +101,9 @@ launch the hand-written CUDA kernels with the plan.
    wide one other than its T K3 steps, a compile failed verification or
    the second compile pass compiled anything fresh or gave another
    artifact, or the tuner failed or wrote fewer than 8 ``measure``
-   records; when there is no card it prints nothing and exits 1.
+   records, or a block's K1 launches differ from its GEMM nodes or a
+   tensor of it disagrees with the reference; when there is no card it
+   prints nothing and exits 1.
 
 Inputs: uniform(-1, 1) from ``np.random.default_rng(seed)``; the GRU
 weights are uniform(-1/sqrt(H), 1/sqrt(H)), PyTorch's own GRU init.
@@ -94,18 +118,19 @@ atol = 1e-5 and the GRU sequence rtol 1e-4, atol 1e-5
 Bounds: the larger of bytes (each input read once, each output written
 once) over 3.35 TB/s and operations (2mnk for a GEMM) over 67 TFLOP/s (f32,
 CUDA cores) or 989 TFLOP/s (bf16) — NVIDIA H100 SXM data-sheet peaks at
-700 W.  K2's library call is ``torch.addmm(bias, A, B)`` followed by the
+700 W; a block's bound counts its inputs and output and its GEMMs' 2mnk.  K2's library call is ``torch.addmm(bias, A, B)`` followed by the
 activation's torch op: two launches where there is an activation.  In the
 ``kernels`` line each time sums that kernel's calls over the main path's
 shapes, one call per shape (for K3, one step; K1 at the tuned tile; K3
 and K4 in f32 and bf16 at the DeepBench sizes), and ``launches`` sums the
-three phases.
+four phases.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -134,6 +159,22 @@ GEMM_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
 GRU_TOL = (1e-4, 1e-5)
 CELL_TOL = (1e-5, 1e-5)
 BF16_TOL = (2e-2, 2e-2)
+#: the graph phase: whisper-medium's decoder block (the one config of
+#: ``configs/`` whose head dim, 64, is the power of four ``trace_block``
+#: needs at full width) at the graph tier's default sequence length
+GRAPH_ARCH = "whisper-medium"
+GRAPH_SEQ = 8
+#: below it an f32 tensor of integers is exact, and so is every sum that
+#: builds it; above it K1's f32 sums round where the reference's do not
+EXACT_BOUND = float(1 << 24)
+#: rtol, and atol as a share of max|ref|, for tensors above EXACT_BOUND:
+#: K1's f32 sums of up to 4096 products differ from float64 by a few parts
+#: in 10^7 of max|ref| (the graph lines' max_err_over_max_ref), so 1e-5
+#: leaves a margin of about 20x
+GRAPH_TOL = (1e-5, 1e-5)
+#: the kernels of K1's launch sequence, by name in a profiler trace
+K1_KERNELS = {"k1": ("simt_kernel", "wgmma_kernel", "reduce_kernel",
+                     "transpose_kernel")}
 
 
 def nvidia_smi(query: str) -> str:
@@ -256,6 +297,65 @@ def library_gru_bf16(params: dict, x0: torch.Tensor, xs: torch.Tensor,
     return out
 
 
+def eager_block(t: dict, cfg) -> torch.Tensor:
+    """The traced decoder block in eager torch f32 (``torch.matmul``, TF32
+    off), from the tensors ``t`` by the tracer's names: the graph phase's
+    library yardstick, used nowhere in the port."""
+    scale = 2.0 ** -((cfg.hd.bit_length() - 1) // 2)
+    x = t["x"]
+    y1 = x
+    for h in range(cfg.n_heads):
+        q, k, v = x @ t[f"wq{h}"], x @ t[f"wk{h}"], x @ t[f"wv{h}"]
+        y1 = y1 + (torch.relu((q @ k.T) * scale) @ v) @ t[f"wo{h}"]
+    hid = torch.relu(y1 @ t["w_gate"]) + y1 @ t["w_up"]
+    return y1 + hid @ t["w_down"]
+
+
+def hold_graph(got: dict, want: dict) -> dict:
+    """Each tensor a block produced (``got``) against the float64
+    reference (``want``, by the same names): bit-exact where max|ref| is
+    below ``EXACT_BOUND``, else within ``GRAPH_TOL``."""
+    out = {"exact_tensors": 0, "tolerance_tensors": 0, "max_ref": 0.0,
+           "max_abs_err": 0.0, "max_err_over_max_ref": 0.0, "mismatched": []}
+    for name, ref in want.items():
+        if name not in got:
+            continue
+        mag = float(ref.abs().max())
+        out["max_ref"] = max(out["max_ref"], mag)
+        if mag < EXACT_BOUND:
+            out["exact_tensors"] += 1
+            ok = torch.equal(got[name], ref)
+            err = float((got[name].double() - ref.double()).abs().max())
+        else:
+            out["tolerance_tensors"] += 1
+            err, ok = mismatch(got[name], ref, GRAPH_TOL[0],
+                               GRAPH_TOL[1] * mag)
+            out["max_err_over_max_ref"] = max(out["max_err_over_max_ref"],
+                                              err / mag)
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        if not ok:
+            out["mismatched"].append(name)
+    return out
+
+
+def node_ms(cg, env: dict, dev, reps: int = 3) -> dict:
+    """Where a block's ``execute`` time goes: each node rerun alone on its
+    recorded inputs and event-timed (``reps`` calls, host path included),
+    summed over the K1 nodes and over the other (stream) nodes."""
+    from repro_torch.graph.execute import interpret_program, run_gemm_node
+    out = {"k1_nodes": 0.0, "stream_nodes": 0.0}
+    for node in cg.graph.nodes:
+        lowering = cg.kernels[cg.node_kernels[node.name]].lowering
+        ins = {b: env[t] for b, t in node.inputs}
+        if lowering["kind"] == "stream":
+            out["stream_nodes"] += time_ms(
+                lambda: interpret_program(node.program, ins, dev), reps)
+        else:
+            out["k1_nodes"] += time_ms(
+                lambda: run_gemm_node(node, lowering, ins), reps)
+    return out
+
+
 def entry(name, source, replaces, count, rs):
     """One kernel's line: times summed over the main path's shapes."""
     bounds = [r["bound"] for r in rs]
@@ -285,7 +385,10 @@ def main() -> int:
     from repro_torch.compile import driver as compile_driver
     from repro_torch.compile.driver import clear_memo
     from repro_torch.compile.pipeline import DEFAULT_PASSES, VerifyPass
+    from repro_torch.configs import get_config, get_trace_config
     from repro_torch.core.sysgraph import gpu_sm
+    from repro_torch.graph import (block_inputs, compile_graph,
+                                   fuse_epilogues, trace_block)
     from repro_torch.kernels import cuda, ref
     from repro_torch.kernels.gemm import (MIN_SPLIT_STEPS, block_tile,
                                           device_sms, gemm, gemm_bias_act,
@@ -300,6 +403,7 @@ def main() -> int:
                                          step_route)
     from repro_torch.kernels.ops import (gru_tile, plan_gemm, plan_gru,
                                          scheduled_gemm)
+    from repro_torch.models.traceable import block_reference
     from repro_torch.search import tune
     from repro_torch.search.cache import TuningCache, set_default_cache
     from repro_torch.verify import verify_artifact
@@ -465,6 +569,69 @@ def main() -> int:
         failures.append(f"compile: the second pass compiled {refresh} fresh, "
                         f"{same} of {len(first)} artifacts identical")
 
+    # ---- the graph tier's compiles: whisper-medium's decoder block -------
+    blocks = []
+    for size, cfg in (("full", get_config(GRAPH_ARCH).scaled(n_layers=1)),
+                      ("trace", get_trace_config(GRAPH_ARCH))):
+        g = trace_block(cfg, seq_len=GRAPH_SEQ)
+        inputs = {t: torch.from_numpy(v).to(dev)
+                  for t, v in block_inputs(g).items()}
+        flops = 2.0 * sum(math.prod(a.size for a in n.program.axes)
+                          for n in g.nodes if n.kind == "gemm")
+        fg, decisions = fuse_epilogues(g)
+        blocks += [{"size": size, "fused": fused, "cfg": cfg, "g": gg,
+                    "decisions": dec, "inputs": inputs, "flops": flops}
+                   for fused, gg, dec in ((False, g, []),
+                                          (True, fg, decisions))]
+
+    def compile_blocks():
+        return [compile_graph(b["g"], graph, decisions=b["decisions"])
+                for b in blocks]
+
+    def kernel_payloads(cg):
+        return {fp: payload(k) for fp, k in cg.kernels.items()}
+
+    t0 = time.perf_counter()
+    CountedVerifyPass.passed = 0
+    compile_driver.VerifyPass = CountedVerifyPass
+    try:
+        first_graphs = compile_blocks()
+    finally:
+        compile_driver.VerifyPass = VerifyPass
+    graph_compile_s = time.perf_counter() - t0
+    clear_memo()
+    set_default_artifact_cache(ArtifactCache(str(compiled_path)))
+    second_graphs = compile_blocks()
+    graph_rows = []
+    for b, cg, cg2 in zip(blocks, first_graphs, second_graphs):
+        b["cg"] = cg
+        kinds = [cg.kernels[cg.node_kernels[n.name]].lowering["kind"]
+                 for n in cg.graph.nodes]
+        b["gemm_nodes"] = kinds.count("pallas_gpu_gemm")
+        b["stream_nodes"] = kinds.count("stream")
+        graph_rows.append({"graph": cg.name, "fused": b["fused"],
+                     "nodes": len(kinds), "gemm_nodes": b["gemm_nodes"],
+                     "stream_nodes": b["stream_nodes"],
+                     "unique_programs": cg.stats["unique_programs"],
+                     "fresh": cg.stats["fresh_compiles"],
+                     "cache_hits": cg.stats["cache_hits"],
+                     "second_pass_fresh": cg2.stats["fresh_compiles"],
+                     "second_pass_identical":
+                     kernel_payloads(cg) == kernel_payloads(cg2),
+                     "modeled_makespan_s": cg.makespan})
+    graph_fresh = sum(r["fresh"] for r in graph_rows)
+    emit({"phase": "graph_compile", "target": graph.name,
+          "seconds": graph_compile_s, "fresh": graph_fresh,
+          "passed_verify_pass": CountedVerifyPass.passed,
+          "graphs": graph_rows})
+    if not graph_fresh or CountedVerifyPass.passed != graph_fresh:
+        failures.append(f"graph compile: {graph_fresh} fresh compiles, "
+                        f"{CountedVerifyPass.passed} through VerifyPass")
+    if any(r["second_pass_fresh"] or not r["second_pass_identical"]
+           for r in graph_rows):
+        failures.append("graph compile: the second pass compiled something "
+                        "fresh or gave another artifact")
+
     # ---- main path, phase plan: the compiler's tile ----------------------
     empty = cuda.BUILD_DIR / f"tuning-empty-{os.getpid()}.json"
     set_default_cache(TuningCache(str(empty)))
@@ -556,6 +723,18 @@ def main() -> int:
                                                             graph=graph)
             c["k2_out"] = {fn: gemm_bias_act(c["a"], c["b"], c["bias"], fn)
                            for fn in ACTS}
+
+    # ---- main path, phase graph: the compiled blocks on the card ---------
+    with counted("graph", ("gemm",)):
+        for b in blocks:
+            before = counters["gemm"].launches
+            b["env"] = b["cg"].execute(b["inputs"], device=dev,
+                                       return_all=True)
+            b["k1_launches"] = counters["gemm"].launches - before
+    for b in blocks:
+        if b["k1_launches"] != b["gemm_nodes"]:
+            failures.append(f"graph {b['cg'].name}: {b['k1_launches']} K1 "
+                            f"launches for {b['gemm_nodes']} GEMM nodes")
 
     # ---- held against the plain versions, and timed -----------------------
     k1, k2 = [], []
@@ -884,6 +1063,43 @@ def main() -> int:
           "seq_plain_ms": w_plain, "seq_bound_ms": w_bound[0],
           "seq_bound_by": w_bound[1], "max_abs_err": w_err,
           "rtol": GRU_TOL[0], "atol": GRU_TOL[1], "ok": w_ok})
+
+    # the compiled blocks against the float64 reference, and timed
+    for b in blocks:
+        cg, cfg, inputs = b["cg"], b["cfg"], b["inputs"]
+        want = block_reference(inputs, cfg, GRAPH_SEQ, device=dev,
+                               return_all=True)
+        held = hold_graph(b["env"], want)
+        if held["mismatched"] or (b["size"] == "trace"
+                                  and held["tolerance_tensors"]):
+            failures.append(f"graph {cg.name}: tensors off the reference: "
+                            f"{held['mismatched']}, "
+                            f"{held['tolerance_tensors']} above 2^24")
+        with torch.no_grad():
+            lib_out = eager_block(inputs, cfg)
+        lib_err = float((lib_out.double() - want["y2"].double()).abs().max())
+        nbytes = sum(cg.graph.tensors[t].nbytes
+                     for t in (*cg.graph.inputs, *cg.graph.outputs))
+        g_bound = bound(nbytes, b["flops"], torch.float32)
+        run = lambda: cg.execute(inputs, device=dev)    # noqa: E731
+        emit({"phase": "graph", "graph": cg.name, "size": b["size"],
+              "fused": b["fused"], "d_model": cfg.d_model,
+              "n_heads": cfg.n_heads, "d_ff": cfg.d_ff, "seq": GRAPH_SEQ,
+              "nodes": len(cg.graph.nodes), "gemm_nodes": b["gemm_nodes"],
+              "k1_launches": b["k1_launches"],
+              "stream_nodes": b["stream_nodes"], **held,
+              "execute_ms": time_ms(run, 5),
+              "node_ms": node_ms(cg, b["env"], dev),
+              "device_ms": device_ms(run, 3, K1_KERNELS, "k1", other=True),
+              "reference_ms": time_ms(lambda: block_reference(
+                  inputs, cfg, GRAPH_SEQ, device=dev), 5),
+              "library_ms": time_ms(lambda: eager_block(inputs, cfg), 5),
+              "library": "eager torch f32 (torch.matmul, TF32 off)",
+              "library_max_err_over_max_ref":
+              lib_err / float(want["y2"].abs().max()),
+              "bytes": nbytes, "gflop": b["flops"] / 1e9,
+              "bound_ms": g_bound[0], "bound_by": g_bound[1],
+              "ok": not held["mismatched"]})
 
     launches = {name: sum(p[name] for p in phase_launches.values())
                 for name in counters}

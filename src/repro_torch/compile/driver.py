@@ -4,8 +4,11 @@
 graph, any Approach); ``compile_gemm`` / ``compile_gru`` are the workload
 frontends the kernels, the tuner and the smoke run share;
 ``compile_selection`` runs the back half of the pipeline when an instruction
-selection is already in hand (the search evaluators), and ``DeltaScheduler``
-re-schedules many approaches of one selection incrementally.
+selection is already in hand (the search evaluators and per-chip fabric
+compiles); ``compile_fabric`` partitions a workload across a multi-chip
+topology and returns an artifact carrying the distributed plan; and
+``DeltaScheduler`` re-schedules many approaches of one selection
+incrementally.
 
 Every entry produces (or replays) a ``CompiledKernel``.  Fresh compiles are
 memoized in-process per artifact key; the persistent artifact cache is
@@ -26,7 +29,8 @@ from ..core.isel import Selection
 from ..core.sysgraph import SystemGraph, gpu_sm
 from .artifact import CompiledKernel, CompileError
 from .cache import ArtifactCache, get_default_artifact_cache
-from .keys import artifact_key, cacheable_approach
+from .keys import (artifact_key, cacheable_approach, program_fingerprint,
+                   sysgraph_fingerprint)
 from .pipeline import (CompileContext, LowerPass, MapPass, Pipeline,
                        SchedulePass, SelectPass, VerifyPass)
 
@@ -189,8 +193,8 @@ def compile_selection(selection: Selection, graph: SystemGraph,
                       verify: bool = False,
                       meta: dict | None = None) -> CompiledKernel:
     """Schedule + Lower an existing Selection (no caching: this is the hot
-    inner entry the search evaluators use, so the static verifier is opt-in
-    here — pass ``verify=True`` to gate)."""
+    inner entry the search evaluators and per-chip fabric compiles use, so
+    the static verifier is opt-in here — pass ``verify=True`` to gate)."""
     approach = resolve_approach(approach)
     ctx = CompileContext(program=program or selection.program, graph=graph,
                          approach=approach, backend=backend,
@@ -265,6 +269,77 @@ def compile_gru(batch: int, hidden: int, inp: int | None = None,
 
 
 # --------------------------------------------------------------------------- #
+# Multi-chip (fabric) compiles
+# --------------------------------------------------------------------------- #
+
+
+def compile_fabric(kernel: str, shape: tuple[int, ...], topo,
+                   axis: str | None = None, approach=None,
+                   algorithm: str = "ring", replicate_out: bool = False, *,
+                   cache: ArtifactCache | None = None,
+                   use_cache: bool = True) -> CompiledKernel:
+    """Partition ``kernel``/``shape`` across ``topo`` and compile: per-chip
+    schedules come from ``compile_selection`` and the distributed makespan
+    from the ``repro_torch.fabric`` event simulator.  The artifact's tile
+    plan is chip 0's; ``artifact.fabric`` carries the partition + collective
+    plan."""
+    from ..fabric.partition import partition, partition_axes
+    from ..fabric.simulate import replicate_output, simulate_partition
+    from ..fabric.topology import Topology
+
+    approach = resolve_approach(approach)
+    axis = axis or partition_axes(kernel)[0]
+    backend = (f"fabric-{topo.name}-{axis}-{algorithm}"
+               + ("-repl" if replicate_out else ""))
+    cache = _resolve_cache(cache, use_cache)
+    chip_graph = Topology.chip_graph()
+    fabric_graph = topo.build_graph()
+    pp = partition(kernel, shape, axis, topo.n_chips)
+    if replicate_out:
+        pp = replicate_output(pp)
+
+    key, hit = _lookup(pp.base, fabric_graph, approach, backend, cache,
+                       use_cache)
+    if hit is not None:
+        _attach(hit, pp.base, fabric_graph, approach, None, True)
+        return hit
+    if key is None:                        # opaque approach: key is informational
+        key = artifact_key(pp.base, fabric_graph, approach, backend)
+
+    res = simulate_partition(pp, topo, approach, algorithm, chip_graph)
+    shard0 = compile_selection(pp.shard_selection(pp.shards[0]), chip_graph,
+                               approach, program=pp.shards[0].program)
+    art = CompiledKernel(
+        key=key,
+        program_name=pp.base.name,
+        program_fp=program_fingerprint(pp.base),
+        graph_name=fabric_graph.name,
+        graph_fp=sysgraph_fingerprint(fabric_graph),
+        approach_fp=shard0.approach_fp,
+        backend=backend,
+        cost=res.makespan,
+        instrs=shard0.instrs,
+        counts=shard0.counts,
+        bytes_moved=shard0.bytes_moved,
+        lowering=shard0.lowering,
+        fabric={"axis": pp.axis, "algorithm": res.algorithm,
+                "chips": topo.n_chips, "topology": topo.name,
+                "makespan": res.makespan, "comm_end": res.comm_end,
+                "comm_bound": res.comm_bound,
+                "collective_steps": res.n_collective_steps,
+                "chip_spans": list(res.chip_spans),
+                "out_mode": pp.out_mode,
+                "collectives": [{"kind": c.kind, "buffer": c.buffer,
+                                 "when": c.when, "axis": c.axis}
+                                for c in pp.collectives],
+                "per_chip_cost": shard0.cost},
+        meta={"kernel": kernel, "shape": list(shape)},
+        program=pp.base, graph=fabric_graph, approach=approach,
+        selection=shard0.selection, schedule=shard0.schedule)
+    return _store(art, cache, memoize=use_cache)
+
+
+# --------------------------------------------------------------------------- #
 # Cache-hit replay
 # --------------------------------------------------------------------------- #
 
@@ -281,7 +356,23 @@ def _attach(art: CompiledKernel, program, graph, approach, isa,
 def recompile_schedule(art: CompiledKernel) -> None:
     """Rebuild selection + schedule for a cache-hydrated artifact (used by
     ``CompiledKernel.ensure_schedule``).  Deterministic: the same program,
-    graph and approach reproduce the cached decisions exactly."""
+    graph and approach reproduce the cached decisions exactly.
+
+    Fabric artifacts carry chip 0's *per-chip* schedule (what a fresh
+    ``compile_fabric`` attaches), so the rebuild re-partitions and
+    schedules shard 0 on the single-chip graph — not the unsharded program
+    on the fabric graph."""
+    if art.fabric is not None:
+        from ..fabric.partition import partition
+        from ..fabric.topology import Topology
+        pp = partition(art.meta["kernel"], tuple(art.meta["shape"]),
+                       art.fabric["axis"], art.fabric["chips"])
+        shard0 = compile_selection(pp.shard_selection(pp.shards[0]),
+                                   Topology.chip_graph(), art.approach,
+                                   program=pp.shards[0].program)
+        art.selection = shard0.selection
+        art.schedule = shard0.schedule
+        return
     if art.selection is None:
         fe = art.meta.get("frontend")
         if fe in _FRONTENDS:

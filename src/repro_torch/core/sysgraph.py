@@ -7,11 +7,24 @@ Nodes are stateful during scheduling: memory nodes track resident buffer
 copies, compute nodes accumulate their instruction streams — the graph is the
 hardware abstraction layer the static scheduler dry-runs against.
 
-One factory is provided:
+Three factories are provided:
 
-  * ``gpu_sm(n_sms)`` — the GPU target: one HBM3 module feeding thread-block
-    clusters of SMs, each cluster staging through its distributed shared
-    memory, with NVLink-class links between clusters when ``n_sms > 1``.
+  * ``gpu_sm(n_sms)`` — the GPU target, the port's default: one HBM3 module
+    feeding thread-block clusters of SMs, each cluster staging through its
+    distributed shared memory, with NVLink-class links between clusters
+    when ``n_sms > 1``.
+  * ``tpu_v5e(n_cores)`` — the JAX package's TPU target: HBM (819 GB/s,
+    16 GiB) feeding per-core VMEM (128 MiB) feeding an MXU (matmul) + VPU
+    (elementwise).
+  * ``paper_accelerator(n_clusters)`` — the paper's case-study device
+    (Section 5): clusters of paired processing units sharing register files,
+    several HBM modules, everything explicitly managed.
+
+The last two are modelled targets kept so the port compiles, tunes and
+simulates against the same machine descriptions as the JAX package (the
+fabric tier builds its multi-chip graphs from ``add_v5e_chip``).  Their
+constants are the JAX package's, copied unchanged; they describe no device
+this port runs on, and no number of the port is taken on or for a TPU.
 
 Memories carry a *role* (``host`` / ``global`` / ``staging``) so budget and
 capacity logic — the scheduler's tile budget, the verifier's working-set
@@ -170,6 +183,58 @@ class SystemGraph:
 
 
 # --------------------------------------------------------------------------- #
+# Modelled TPU v5e constants — the JAX package's model, copied unchanged; no
+# measurement of this port (it runs on no TPU)
+# --------------------------------------------------------------------------- #
+
+V5E_PEAK_FLOPS = 197e12        # bf16 FLOP/s per chip
+V5E_HBM_BW = 819e9             # bytes/s
+V5E_HBM_BYTES = 16 << 30
+V5E_VMEM_BYTES = 128 << 20
+V5E_ICI_BW = 50e9              # bytes/s per link
+V5E_CLOCK = 0.94e9
+
+
+def add_v5e_chip(g: SystemGraph, c: int, host_mem_node: str = "host") -> None:
+    """Add one modelled v5e chip (HBM + VMEM + core, PCIe-attached to the
+    host) to ``g``.  Fabric wiring between chips is layered on top by
+    ``repro_torch.fabric.topology`` — this helper deliberately knows nothing
+    about inter-chip links."""
+    hbm, vmem = f"hbm{c}", f"vmem{c}"
+    g.add_memory(hbm, V5E_HBM_BYTES, level=1)
+    g.add_memory(vmem, V5E_VMEM_BYTES, level=2)
+    # PCIe: host pushes down, the chip's core DMAs back up.
+    g.add_edge(host_mem_node, hbm, bandwidth=32e9, latency=2e-6,
+               issuer="host", rev_issuer=f"core{c}")
+    g.add_edge(hbm, vmem, bandwidth=V5E_HBM_BW, latency=1e-7,
+               issuer=f"core{c}")
+    g.add_compute(
+        f"core{c}", vmem,
+        {"mxu.", "vpu.", "fused."},
+        flops=V5E_PEAK_FLOPS,
+        matmul_tile=(128, 128, 128), vector_lanes=8 * 128,
+        clock_hz=V5E_CLOCK)
+
+
+def tpu_v5e(n_cores: int = 1, host_mem: int = 512 << 30) -> SystemGraph:
+    """One modelled v5e chip (or several connected by an ICI ring) as a
+    system graph — the JAX package's TPU target, kept as a compile and
+    simulation target of the port.
+
+    Multi-chip wiring is delegated to ``repro_torch.fabric.topology.ring``:
+    a bidirectional ring with the wraparound link, whose per-direction
+    copies are issued by the receiving chip's core."""
+    g = SystemGraph(f"tpu_v5e_x{n_cores}", family="tpu")
+    g.add_memory("host", host_mem, level=0)
+    for c in range(n_cores):
+        add_v5e_chip(g, c)
+    if n_cores > 1:
+        from ..fabric.topology import ring
+        ring(n_cores).wire_ici(g)
+    return g
+
+
+# --------------------------------------------------------------------------- #
 # Hardware constants (GPU) — NVIDIA H100 SXM data-sheet peaks at 700 W, not
 # measurements; GPU_SMS_PER_CLUSTER and GPU_CLOCK are modelling choices
 # --------------------------------------------------------------------------- #
@@ -242,18 +307,48 @@ def gpu_sm(n_sms: int = 8, host_mem: int = 512 << 30) -> SystemGraph:
     return g
 
 
+def paper_accelerator(n_clusters: int = 2, regfile_bytes: int = 8 << 20,
+                      hbm_modules: int = 2) -> SystemGraph:
+    """The paper's case-study architecture (Section 5), modelled: clusters of
+    paired matrix/elementwise processing units sharing large register files,
+    several HBM modules, no cache hierarchy — all memory explicitly managed.
+    Its constants are the JAX package's."""
+    g = SystemGraph(f"paper_accel_x{n_clusters}", family="paper")
+    g.add_memory("host", 512 << 30, level=0)
+    for m in range(hbm_modules):
+        g.add_memory(f"hbm{m}", 8 << 30, level=1)
+        g.add_edge("host", f"hbm{m}", bandwidth=32e9, latency=2e-6)
+    for c in range(n_clusters):
+        rf = f"rf{c}"
+        g.add_memory(rf, regfile_bytes, level=2)
+        for m in range(hbm_modules):
+            g.add_edge(f"hbm{m}", rf, bandwidth=400e9, latency=2e-7,
+                       issuer=f"pu{c}a")
+        # the paired processing units sharing one register file set
+        for suffix in ("a", "b"):
+            g.add_compute(
+                f"pu{c}{suffix}", rf,
+                {"mxu.", "vpu.", "fused."},
+                flops=25e12, matmul_tile=(64, 64, 64), vector_lanes=256,
+                clock_hz=1.0e9)
+    return g
+
+
 # --------------------------------------------------------------------------- #
 # Target registry — the CLI ``--target`` vocabulary
 # --------------------------------------------------------------------------- #
 
 #: canonical target name -> zero-arg factory for the default single-device
-#: graph.
+#: graph.  The port's default target is ``gpu_sm``; the other two are the
+#: JAX package's modelled targets.
 TARGETS: dict[str, object] = {
+    "tpu_v5e": lambda: tpu_v5e(1),
     "gpu_sm": lambda: gpu_sm(8),
+    "paper": lambda: paper_accelerator(2),
 }
 
-#: short spellings accepted by resolve_target.
-TARGET_ALIASES = {"gpu": "gpu_sm"}
+#: historical / short spellings accepted by resolve_target.
+TARGET_ALIASES = {"v5e": "tpu_v5e", "tpu": "tpu_v5e", "gpu": "gpu_sm"}
 
 
 def resolve_target(name: str) -> SystemGraph:

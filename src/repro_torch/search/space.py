@@ -96,11 +96,19 @@ class SearchSpace:
     below the hardware shape only waste matrix-unit passes (the cost model
     charges whole passes), so the space spans [hw, 4*hw] for output dims and
     [hw, 8*hw] or budget-streaming for the reduction.
+
+    ``fabric_axes`` extends the space with the distributed-mapping
+    dimensions (``part_axis`` over the given partition axes, ``collective``
+    over the ring algorithms) so ``repro_torch.fabric.FabricEvaluator`` can
+    tune the partition jointly with the per-chip tiles.  The fabric baseline
+    is (first axis, ``ring``) — the untuned multi-chip default.
     """
 
-    def __init__(self, hw_tile: tuple[int, int, int] = (128, 128, 128)):
+    def __init__(self, hw_tile: tuple[int, int, int] = (128, 128, 128),
+                 fabric_axes: tuple[str, ...] = ()):
         ti, tj, tk = hw_tile
         self.hw_tile = hw_tile
+        self.fabric_axes = tuple(fabric_axes)
         self.axes: tuple[SpaceAxis, ...] = (
             SpaceAxis("tile_i", (None, ti, 2 * ti, 4 * ti)),
             SpaceAxis("tile_j", (None, tj, 2 * tj, 4 * tj)),
@@ -111,19 +119,37 @@ class SearchSpace:
             SpaceAxis("device", DEVICE_POLICIES),
             SpaceAxis("source", SOURCE_POLICIES),
         )
+        if self.fabric_axes:
+            from ..fabric.collectives import ALGORITHMS
+            self.axes += (SpaceAxis("part_axis", self.fabric_axes),
+                          SpaceAxis("collective", tuple(ALGORITHMS)))
         self._by_name = {a.name: a for a in self.axes}
 
     @classmethod
     def for_graph(cls, graph: SystemGraph) -> "SearchSpace":
         return cls(graph.min_matmul_tile())
 
+    @classmethod
+    def for_fabric(cls, kernel: str = "gemm") -> "SearchSpace":
+        """The joint (partition axis, collective algorithm, per-chip tile)
+        space for distributed tuning over the fabric's modelled chips."""
+        from ..fabric.partition import partition_axes
+        from ..fabric.topology import Topology
+        return cls(Topology.chip_graph().min_matmul_tile(),
+                   fabric_axes=partition_axes(kernel))
+
     # -- points --------------------------------------------------------------
     def baseline(self) -> Config:
         """The greedy-equivalent point: ParamApproach(baseline()) makes the
-        same decisions as GreedyApproach on every program."""
-        return {"tile_i": None, "tile_j": None, "tile_k": None,
+        same decisions as GreedyApproach on every program (plus, in fabric
+        spaces, the untuned multi-chip default partition)."""
+        base = {"tile_i": None, "tile_j": None, "tile_k": None,
                 "vmem_frac": 1.0, "grow_j": True, "unroll": "out_major",
                 "device": "locality", "source": "cheapest"}
+        if self.fabric_axes:
+            base["part_axis"] = self.fabric_axes[0]
+            base["collective"] = "ring"
+        return base
 
     def random_config(self, rng: random.Random) -> Config:
         return {a.name: rng.choice(a.choices) for a in self.axes}

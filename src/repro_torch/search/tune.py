@@ -6,7 +6,13 @@
 Suites (the paper's evaluation set, Section 6):
 
   * ``gemm``   — the DeepBench GEMM shapes of Figure 3,
-  * ``gru``    — the GRU cell (Figure 4 sizes).
+  * ``gru``    — the GRU cell (Figure 4 sizes),
+  * ``fabric`` — distributed GEMMs on a modelled multi-chip fabric
+                 (``--chips`` / ``--topology``): tunes (partition axis,
+                 collective algorithm, per-chip tiles) *jointly* against the
+                 ``repro_torch.fabric`` event-driven simulator, anchored to
+                 the untuned multi-chip baseline (axis=m, ring, greedy
+                 tiles); cost backend only.
 
 Backends: ``cost`` scores a candidate by the modeled makespan of its
 schedule on the target (numpy only, no card); ``measure`` times K1
@@ -65,6 +71,9 @@ GRU_SIZES = [(16, 256), (32, 512)]
 
 #: Validation proxies cap each axis so the NumPy oracle stays tractable.
 VALIDATE_DIM_CAP = 192
+
+# Fabric-suite shapes: one large library-friendly GEMM and one awkward one.
+FABRIC_GEMM_SIZES = [(5124, 700, 2048), (1760, 128, 1760)]
 
 
 @dataclass
@@ -240,6 +249,55 @@ def _case_counters(cost_eval: CostModelEvaluator) -> dict:
     return counters
 
 
+def tune_fabric_case(m: int, n: int, k: int, topo, strategy: str,
+                     trials: int, seed: int,
+                     validate: bool = True) -> CaseReport:
+    """Joint distributed tuning of one GEMM shape on one fabric: the config
+    vector spans (partition axis, collective algorithm, per-chip tiles) and
+    candidates are scored by the ``repro_torch.fabric`` simulator's
+    distributed makespan.  Trial 0 is the untuned multi-chip baseline, so
+    the tuned config is <= the untuned fabric default by construction."""
+    from ..core.kernels_ir import matmul
+    from ..fabric.partition import partition_gemm, replay_bitexact
+    from ..fabric.simulate import VALIDATE_DIM_CAP as FAB_CAP
+    from ..fabric.simulate import FabricEvaluator
+    from ..fabric.topology import Topology
+
+    t0 = time.time()
+    space = SearchSpace.for_fabric("gemm")
+    evaluate = FabricEvaluator("gemm", (m, n, k), topo)
+    outcome = STRATEGIES[strategy](space, evaluate, trials=trials, seed=seed)
+
+    validation = None
+    if validate:
+        pm, pn, pk = (max(topo.n_chips, min(d, FAB_CAP)) for d in (m, n, k))
+        axis = outcome.best_config.get("part_axis", "m")
+        proxy = partition_gemm(pm, pn, pk, axis, topo.n_chips)
+        validation = replay_bitexact(proxy, Topology.chip_graph(),
+                                     ParamApproach(outcome.best_config),
+                                     rng_seed=seed)
+
+    key = tuning_key(matmul(m, n, k), topo.build_graph(), "fabric")
+    return CaseReport(name=f"fabric_gemm_{m}x{n}x{k}_{topo.name}", key=key,
+                      backend="fabric",
+                      greedy_cost=outcome.baseline_cost,
+                      tuned_cost=outcome.best_cost,
+                      outcome=outcome, validation=validation,
+                      elapsed_s=time.time() - t0,
+                      config=dict(outcome.best_config))
+
+
+def fabric_record_for(report: CaseReport, topo, strategy: str) -> TuningRecord:
+    return TuningRecord(
+        key=report.key, config=report.config, cost=report.tuned_cost,
+        baseline_cost=report.greedy_cost, backend="fabric",
+        strategy=strategy, trials=report.outcome.evaluations,
+        meta={"case": report.name, "topology": topo.name,
+              "chips": topo.n_chips,
+              "speedup": round(report.greedy_cost
+                               / max(report.tuned_cost, 1e-30), 4)})
+
+
 def record_for(case: TuneCase, report: CaseReport, graph: SystemGraph,
                strategy: str) -> TuningRecord:
     tile = None
@@ -264,6 +322,13 @@ def _tune_worker(payload: dict) -> tuple[int, CaseReport]:
     cache records — in deterministic case order regardless of which worker
     finishes first."""
     idx = payload["idx"]
+    if payload["suite"] == "fabric":
+        from ..fabric.topology import make_topology
+        topo = make_topology(payload["topology"], payload["chips"])
+        m, n, k = payload["shape"]
+        return idx, tune_fabric_case(m, n, k, topo, payload["strategy"],
+                                     payload["trials"], payload["seed"],
+                                     validate=payload["validate"])
     case = build_cases(payload["suite"], payload["limit"])[idx]
     return idx, tune_case(case, make_graph(payload["graph"]),
                           payload["strategy"], payload["trials"],
@@ -275,7 +340,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.search.tune",
         description="Joint mapping/schedule autotuner with persistent cache.")
-    ap.add_argument("--suite", choices=["gemm", "gru"], default="gemm")
+    ap.add_argument("--suite", choices=["gemm", "gru", "fabric"],
+                    default="gemm")
+    ap.add_argument("--chips", type=int, default=4,
+                    help="fabric suite: number of chips")
+    ap.add_argument("--topology", choices=["ring", "torus", "host"],
+                    default="ring", help="fabric suite: fabric shape")
     ap.add_argument("--trials", type=int, default=32)
     ap.add_argument("--strategy", choices=sorted(STRATEGIES),
                     default="hillclimb")
@@ -301,6 +371,10 @@ def main(argv=None) -> int:
     strategy = args.strategy
 
     if args.backend == "measure":
+        if args.suite == "fabric":
+            print("--suite fabric is scored by the fabric simulator: use "
+                  "--backend cost", file=sys.stderr)
+            return 2
         if args.workers > 1:
             print("--backend measure tunes one case at a time on the card "
                   "(--workers 1)", file=sys.stderr)
@@ -316,25 +390,52 @@ def main(argv=None) -> int:
     cache = TuningCache(args.cache)
     reports: list[CaseReport] = []
 
-    cases = build_cases(args.suite, args.limit)
-    if not cases:
-        print("no cases selected", file=sys.stderr)
-        return 2
-    print(f"# tuning {len(cases)} case(s): suite={args.suite} "
-          f"strategy={strategy} trials={args.trials} "
-          f"backend={args.backend} graph={graph.name}")
-    print(f"# cache: {cache.path}")
-    by_name = {case.name: case for case in cases}
-    payloads = [{"idx": i, "suite": args.suite, "limit": args.limit,
-                 "graph": args.target, "strategy": strategy,
-                 "trials": args.trials, "seed": args.seed,
-                 "backend": args.backend, "validate": not args.no_validate}
-                for i in range(len(cases))]
+    if args.suite == "fabric":
+        from ..fabric.topology import make_topology
+        topo = make_topology(args.topology, args.chips)
+        shapes = FABRIC_GEMM_SIZES[:args.limit] if args.limit \
+            else FABRIC_GEMM_SIZES
+        print(f"# tuning {len(shapes)} fabric case(s): chips={args.chips} "
+              f"topology={topo.name} strategy={strategy} "
+              f"trials={args.trials}")
+        print(f"# cache: {cache.path}")
+        runs = [lambda m=m, n=n, k=k: tune_fabric_case(
+                    m, n, k, topo, strategy, args.trials, args.seed,
+                    validate=not args.no_validate)
+                for m, n, k in shapes]
+        payloads = [{"idx": i, "suite": "fabric", "shape": shapes[i],
+                     "topology": args.topology, "chips": args.chips,
+                     "strategy": strategy, "trials": args.trials,
+                     "seed": args.seed, "validate": not args.no_validate}
+                    for i in range(len(shapes))]
+        recorder = lambda rep: fabric_record_for(  # noqa: E731
+            rep, topo, rep.outcome.strategy)
+    else:
+        cases = build_cases(args.suite, args.limit)
+        if not cases:
+            print("no cases selected", file=sys.stderr)
+            return 2
+        print(f"# tuning {len(cases)} case(s): suite={args.suite} "
+              f"strategy={strategy} trials={args.trials} "
+              f"backend={args.backend} graph={graph.name}")
+        print(f"# cache: {cache.path}")
+        by_name = {case.name: case for case in cases}
+        runs = [lambda case=case: tune_case(
+                    case, graph, strategy, args.trials, args.seed,
+                    args.backend, validate=not args.no_validate)
+                for case in cases]
+        payloads = [{"idx": i, "suite": args.suite, "limit": args.limit,
+                     "graph": args.target, "strategy": strategy,
+                     "trials": args.trials, "seed": args.seed,
+                     "backend": args.backend,
+                     "validate": not args.no_validate}
+                    for i in range(len(cases))]
+        recorder = lambda rep: record_for(  # noqa: E731
+            by_name[rep.name], rep, graph, rep.outcome.strategy)
 
     def emit(rep: CaseReport) -> None:
         reports.append(rep)
-        cache.store(record_for(by_name[rep.name], rep, graph,
-                               rep.outcome.strategy), save=False)
+        cache.store(recorder(rep), save=False)
         v = rep.validation
         vtxt = ("-" if v is None else
                 ("exact" if v.exact else f"err={v.max_abs_err:.2e}"))
@@ -362,9 +463,8 @@ def main(argv=None) -> int:
         for i in range(len(payloads)):
             emit(done[i])
     else:
-        for case in cases:
-            emit(tune_case(case, graph, strategy, args.trials, args.seed,
-                           args.backend, validate=not args.no_validate))
+        for run in runs:
+            emit(run())
     failures = sum(1 for r in reports if not r.ok)
     cache.save()
     print(f"# wrote {len(reports)} record(s) to {cache.path}")
@@ -374,6 +474,9 @@ def main(argv=None) -> int:
                 "strategy": strategy, "trials": args.trials,
                 "backend": args.backend, "graph": graph.name,
                 "cache": cache.path, "failures": failures}
+        if args.suite == "fabric":
+            meta["chips"] = args.chips
+            meta["topology"] = args.topology
         with open(args.json, "w") as f:
             json.dump({**meta, "rows": [r.row() for r in reports]}, f,
                       indent=2)

@@ -1,5 +1,6 @@
-"""``repro_torch.verify`` — the compile-time layers of the static analyzer,
-copied from the JAX package's ``repro.verify``.
+"""``repro_torch.verify`` — the static analyzer, copied from the JAX
+package's ``repro.verify`` (all but its serving layer and mutation
+harness).
 
 Each layer emits structured ``Diagnostic`` records (rule id, severity,
 offending op/statement, message) instead of bare exceptions:
@@ -9,11 +10,14 @@ offending op/statement, message) instead of bare exceptions:
      role consistency, tiling-knob sanity
   3. **schedule**  (``sch.*``) — symbolic replay of ``Schedule.ops`` over
      versioned regions: RAW/WAR/WAW hazards, capacity, residency
+  4. **fabric**    (``fab.*``) — collective/task-graph acyclicity and the
+     sharded-output partition contract
+  5. **graph**     (``gra.*``) — ``repro_torch.graph`` kernel-graph wiring,
+     topology, per-node program health, and placement capacity
 
 plus structural checks on cached artifact payloads (``art.*``).
 ``diagnostics.RULES`` holds every rule id of the reference, including the
-``fab.*``, ``gra.*`` and ``srv.*`` rules of the layers that arrive with
-the fabric, graph and serving tiers.
+``srv.*`` rules of the serving layer, which arrives with the serving tier.
 
 ``verify_compile`` is the strict pipeline entry (``VerifyPass``);
 ``verify_artifact`` checks a live ``CompiledKernel``.
@@ -23,6 +27,9 @@ from __future__ import annotations
 from .artifact import verify_artifact_dict
 from .diagnostics import (ERROR, RULES, WARNING, Diagnostic,
                           DiagnosticReport, VerifyError, diag)
+from .fabric import (verify_collective, verify_fabric, verify_partition,
+                     verify_task_graph)
+from .graph import verify_graph, verify_placement
 from .program import verify_program
 from .schedule import verify_schedule
 from .selection import verify_selection
@@ -30,8 +37,9 @@ from .selection import verify_selection
 __all__ = [
     "Diagnostic", "DiagnosticReport", "VerifyError", "RULES", "ERROR",
     "WARNING", "diag", "verify_program", "verify_selection",
-    "verify_schedule", "verify_artifact_dict", "verify_compile",
-    "verify_artifact",
+    "verify_schedule", "verify_collective", "verify_partition",
+    "verify_task_graph", "verify_fabric", "verify_artifact_dict",
+    "verify_graph", "verify_placement", "verify_compile", "verify_artifact",
 ]
 
 

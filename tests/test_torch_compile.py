@@ -54,5 +54,5 @@ def test_key_names_the_port_toolchain_and_target():
     key = artifact_key(kernels_ir.matmul(64, 64, 64), gpu_sm(8), None)
     assert key.endswith(f"|torch={torch_version()}")
     assert "gpu_sm_x8@" in key
-    assert set(TARGETS) == {"gpu_sm"}
+    assert set(TARGETS) == {"gpu_sm", "tpu_v5e", "paper"}
     assert resolve_target("gpu").name == "gpu_sm_x8"

@@ -494,3 +494,105 @@ def test_slice_on_card(cuda_device):
                            {n: to_torch(v) for n, v in p.items()})
     np.testing.assert_allclose(as_f32(got), as_f32(want), rtol=1e-4,
                                atol=1e-5)
+
+
+# --------------------------------------------------------------------------- #
+# The graph tier on the card
+# --------------------------------------------------------------------------- #
+
+#: the GEMM nodes of whisper-medium's decoder block at T = 8 (D = 1024, 16
+#: heads of 64, F = 4096): (m, n, k) and whether B is stored transposed
+#: (``matmul_nt``: the scores q·kᵀ)
+BLOCK_GEMMS = [(8, 64, 1024, False), (8, 8, 64, True), (8, 64, 8, False),
+               (8, 1024, 64, False), (8, 4096, 1024, False),
+               (8, 1024, 4096, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k,nt", BLOCK_GEMMS)
+def test_k1_at_the_block_plans_launch(cuda_device, m, n, k, nt):
+    from repro_torch.compile import compile_program
+    from repro_torch.core import instructions, kernels_ir
+    from repro_torch.graph.trace import matmul_nt
+    from repro_torch.kernels.ops import launch_config
+    prog = matmul_nt(m, n, k) if nt else kernels_ir.matmul(m, n, k)
+    art = compile_program(prog, gpu_sm(8), None, instructions.tpu_isa(),
+                          allow_transforms=False, use_cache=False)
+    assert art.lowering["kind"] == "pallas_gpu_gemm"
+    tile = launch_config(art.lowering, torch.float32, (m, n, k)).tile
+    rng = np.random.default_rng(m * n + k)
+    a = to_torch(rand(rng, (m, k)), device=cuda_device)
+    b = to_torch(rand(rng, (k, n)), device=cuda_device)
+    before = gemm.launches
+    got = gemm(a, b, tile=tile)
+    torch.cuda.synchronize()
+    assert gemm.launches == before + 1
+    want = ref.gemm_ref(a, b)
+    np.testing.assert_allclose(
+        as_f32(got), as_f32(want), rtol=1e-5,
+        atol=1e-5 * float(want.abs().max()))
+
+
+def _trace_block(fused: bool):
+    from repro_torch.configs import get_trace_config
+    from repro_torch.graph import (block_inputs, compile_graph,
+                                   fuse_epilogues, trace_block)
+    cfg = get_trace_config("whisper-medium")
+    g = trace_block(cfg, seq_len=8)
+    inputs = block_inputs(g)
+    decisions = []
+    if fused:
+        g, decisions = fuse_epilogues(g)
+    return cfg, compile_graph(g, gpu_sm(8), use_cache=False,
+                              decisions=decisions), inputs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_trace_block_on_card_bit_exact(cuda_device, fused):
+    from repro_torch.models.traceable import block_reference
+    cfg, cg, inputs = _trace_block(fused)
+    gemm_nodes = sum(cg.kernels[cg.node_kernels[n.name]].lowering["kind"]
+                     == "pallas_gpu_gemm" for n in cg.graph.nodes)
+    before = gemm.launches
+    got = cg.execute(inputs, return_all=True)
+    torch.cuda.synchronize()
+    assert gemm.launches - before == gemm_nodes > 0
+    plain = cg.execute(inputs, device="cpu", return_all=True)
+    assert set(got) == set(plain)
+    for t, v in plain.items():
+        assert got[t].device.type == "cuda"
+        assert torch.equal(got[t].cpu(), v), t
+    want = block_reference(inputs, cfg, 8, device=cuda_device,
+                           return_all=True)
+    for t, v in want.items():
+        if t in got:
+            assert torch.equal(got[t], v), t
+
+
+@pytest.mark.gpu
+def test_interpret_program_bit_identical_across_runs(cuda_device):
+    from repro_torch.core import kernels_ir
+    from repro_torch.graph import fuse_epilogues, interpret_program
+    from repro_torch.graph import trace_block
+    from repro_torch.configs import get_config
+    cfg = get_config("whisper-medium").scaled(n_layers=1, d_model=256,
+                                              n_heads=4, d_ff=1024)
+    fused, _ = fuse_epilogues(trace_block(cfg, seq_len=8))
+    progs = [n.program for n in fused.nodes if n.kind == "fused"][:4]
+    progs.append(kernels_ir.gru_cell(8, 96, 80))
+    rng = np.random.default_rng(7)
+    for prog in progs:
+        ins = {b.name: to_torch(rand(rng, b.shape), device=cuda_device)
+               for b in prog.buffers
+               if not b.temp and b.name not in prog.outputs}
+        one = interpret_program(prog, ins, cuda_device)
+        two = interpret_program(prog, ins, cuda_device)
+        for name, v in one.items():
+            assert v.device.type == "cuda"
+            assert torch.equal(v, two[name]), (prog.name, name)
+        cpu = interpret_program(prog, {k: v.cpu() for k, v in ins.items()},
+                                "cpu")
+        for name, v in one.items():
+            np.testing.assert_allclose(as_f32(v), as_f32(cpu[name]),
+                                       rtol=1e-6, atol=1e-6)

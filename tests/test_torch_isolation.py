@@ -37,8 +37,13 @@ def test_importing_the_port_loads_no_jax():
     for name in ("core.scheduler", "core.transforms", "compile.keys",
                  "compile.driver", "compile.cache", "verify",
                  "verify.diagnostics", "verify.program", "verify.selection",
-                 "verify.schedule", "verify.artifact", "kernels.gemm",
-                 "kernels.gru", "kernels.ops", "kernels.cuda"):
+                 "verify.schedule", "verify.artifact", "verify.fabric",
+                 "verify.graph", "kernels.gemm", "kernels.gru", "kernels.ops",
+                 "kernels.cuda", "fabric.topology", "fabric.collectives",
+                 "fabric.partition", "fabric.simulate", "graph.ir",
+                 "graph.trace", "graph.fuse", "graph.compile", "graph.execute",
+                 "models.config", "models.traceable", "configs.registry",
+                 "configs.whisper_medium"):
         assert f"repro_torch.{name}" in res["modules"]
 
 
