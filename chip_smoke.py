@@ -24,7 +24,12 @@ launch the hand-written CUDA kernels with the plan.
    traced and compiled with ``compile_graph`` against ``gpu_sm(8)`` through
    the same strict pipeline into the same cache; a second pass with the
    memo cleared must compile nothing fresh (``graph_compile`` line).
-4. Four phases of the main path, each with every launch counter set to 0
+   Then the conv frontend's: seven of ResNet-50's inner layers at minibatch
+   28 (``RESNET_LAYERS``) through ``compile_conv`` against ``gpu_sm(8)``,
+   the same pipeline and cache, and again from the file with the memo
+   cleared (``conv_compile`` lines: calls, transform steps, lowering, the
+   fused GEMM (m, n, k) of a one-call selection, seconds).
+4. Five phases of the main path, each with every launch counter set to 0
    just before it and read just after (one ``launches`` line each):
 
    * ``plan`` — with an empty tuning cache as the default, so the tile is
@@ -54,7 +59,16 @@ launch the hand-written CUDA kernels with the plan.
      (``block_inputs``): each ``pallas_gpu_gemm`` node is one K1 launch at
      the compiled plan's tile (``simt``, f32), each other node runs its
      program through ``interpret_program`` in float64 on the card; K1's
-     launches must equal the graph's ``pallas_gpu_gemm`` nodes.
+     launches must equal the graph's ``pallas_gpu_gemm`` nodes;
+   * ``learned`` — the learned cost model (``search.model.train_suites`` on
+     the ``gemm`` and ``conv`` tuner suites against ``gpu_sm(8)``, a fresh
+     tuning cache and a fresh model store under ``build/repro_torch/``;
+     ``learned_train`` lines) made the process default; then for the
+     fused GEMM of each one-call (1x1) ResNet layer, in f32 and bf16, with
+     the tuning cache missing the shape and the model predicting a block,
+     K1 through ``gemm(a, b)`` with no tile (``tuned_block``'s model
+     branch picks it), and K1 at that tile timed (20 calls).  The store is
+     deactivated afterwards.
 
    K1 and K2 run on the main loop their dtype and K take (``wgmma``: bf16
    after one transposing pass of B; ``simt``: f32), with split-K where the
@@ -91,7 +105,18 @@ launch the hand-written CUDA kernels with the plan.
    rerun alone, event-timed, summed over the K1 nodes and the stream
    nodes), K1's and the rest's device time in one call (profiler), the
    reference's time, and the same block in eager torch f32
-   (``torch.matmul``, TF32 off) as the library yardstick.
+   (``torch.matmul``, TF32 off) as the library yardstick.  One
+   ``learned_gemm`` line per extracted GEMM and dtype: the model's block,
+   its CUDA tile and launch, the host time of one prediction
+   (``predict_ms``), K1 at the model's tile (``learned_ms`` inside the
+   phase, ``learned_ms_2`` between two runs at the compiler's plan tile),
+   K1 at the plan tile (``plan_ms``, ``scheduled_gemm``'s tile), and
+   ``torch.matmul`` in the same dtype.  One ``recurrent`` line per
+   DeepBench GRU size (host only): ``schedule_recurrent`` of the GRU cell
+   on ``gpu_sm(8)``, its copies per stream, the bytes of U the recursive
+   stream copies, the makespans and ``total_time(128)``, beside K4's
+   partition (bytes of U it keeps in shared memory, f32 and bf16) and the
+   f32 sequence time of this run.
 6. Prints the ``kernels`` line and, last, the device line.  Exits non-zero,
    before the device line, when a comparison fails, a kernel of a phase was
    never launched in it, a bf16 DeepBench GEMM did not take the wgmma route
@@ -102,8 +127,10 @@ launch the hand-written CUDA kernels with the plan.
    the second compile pass compiled anything fresh or gave another
    artifact, or the tuner failed or wrote fewer than 8 ``measure``
    records, or a block's K1 launches differ from its GEMM nodes or a
-   tensor of it disagrees with the reference; when there is no card it
-   prints nothing and exits 1.
+   tensor of it disagrees with the reference, or no matmul model was
+   trained, or an extracted GEMM hit the tuning cache, got no prediction
+   or disagreed with its plain version; when there is no card it prints
+   nothing and exits 1.
 
 Inputs: uniform(-1, 1) from ``np.random.default_rng(seed)``; the GRU
 weights are uniform(-1/sqrt(H), 1/sqrt(H)), PyTorch's own GRU init.
@@ -123,7 +150,7 @@ activation's torch op: two launches where there is an activation.  In the
 ``kernels`` line each time sums that kernel's calls over the main path's
 shapes, one call per shape (for K3, one step; K1 at the tuned tile; K3
 and K4 in f32 and bf16 at the DeepBench sizes), and ``launches`` sums the
-four phases.
+five phases.
 """
 from __future__ import annotations
 
@@ -175,6 +202,24 @@ GRAPH_TOL = (1e-5, 1e-5)
 #: the kernels of K1's launch sequence, by name in a profiler trace
 K1_KERNELS = {"k1": ("simt_kernel", "wgmma_kernel", "reduce_kernel",
                      "transpose_kernel")}
+#: ResNet-50's inner layers at minibatch 28 (``benchmarks/bench_resnet.py``,
+#: paper Fig. 5): (name, H, W, kh, kw, cin, cout, stride); conv2_3x3 and
+#: conv3_3x3 are left out for time (14112 and 3528 calls to schedule)
+RESNET_BATCH = 28
+RESNET_LAYERS = [
+    ("conv2_1x1a", 56, 56, 1, 1, 64, 64, 1),
+    ("conv2_1x1b", 56, 56, 1, 1, 64, 256, 1),
+    ("conv3_1x1b", 28, 28, 1, 1, 128, 512, 1),
+    ("conv4_3x3", 14, 14, 3, 3, 256, 256, 1),
+    ("conv4_1x1b", 14, 14, 1, 1, 256, 1024, 1),
+    ("conv5_3x3", 7, 7, 3, 3, 512, 512, 1),
+    ("conv5_1x1b", 7, 7, 1, 1, 512, 2048, 1),
+]
+#: the learned phase's training suites and K1's timed calls a shape
+LEARNED_SUITES = "gemm,conv"
+LEARNED_REPS = 20
+#: the GRU's weights the recurrent schedule copies each step
+U_BUFFERS = ("Ur", "Uz", "Un")
 
 
 def nvidia_smi(query: str) -> str:
@@ -380,12 +425,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device is present", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.compile import (ArtifactCache, compile_gemm, compile_gru,
+    from repro_torch.compile import (ArtifactCache, compile_conv, compile_gemm,
+                                     compile_gru, gru_selection,
                                      set_default_artifact_cache)
     from repro_torch.compile import driver as compile_driver
     from repro_torch.compile.driver import clear_memo
+    from repro_torch.compile.features import role_extents
     from repro_torch.compile.pipeline import DEFAULT_PASSES, VerifyPass
     from repro_torch.configs import get_config, get_trace_config
+    from repro_torch.core.recurrent import schedule_recurrent
     from repro_torch.core.sysgraph import gpu_sm
     from repro_torch.graph import (block_inputs, compile_graph,
                                    fuse_epilogues, trace_block)
@@ -395,7 +443,7 @@ def main() -> int:
                                           gemm_launch, gemm_reduce,
                                           gemm_transpose, kernel_resources,
                                           operand_route, route_tile,
-                                          tuned_block)
+                                          tuned_block, tuned_record)
     from repro_torch.kernels.gru import (STEP_KC, FusedGRU, PARAM_NAMES,
                                          device_smem, device_split, gru_cell,
                                          gru_cell_reduce, gru_seq,
@@ -406,6 +454,8 @@ def main() -> int:
     from repro_torch.models.traceable import block_reference
     from repro_torch.search import tune
     from repro_torch.search.cache import TuningCache, set_default_cache
+    from repro_torch.search.model import (ModelStore, predict_gemm_block,
+                                          set_default_store, train_suites)
     from repro_torch.verify import verify_artifact
 
     dev = torch.device("cuda")
@@ -632,6 +682,60 @@ def main() -> int:
         failures.append("graph compile: the second pass compiled something "
                         "fresh or gave another artifact")
 
+    # ---- the conv frontend: ResNet-50's inner layers at minibatch 28 -------
+    def compile_layer(h, w, kh, kw, cin, cout, stride):
+        return compile_conv(graph=graph, batch=RESNET_BATCH, h=h, w=w, kh=kh,
+                            kw=kw, cin=cin, cout=cout, stride=stride)
+
+    CountedVerifyPass.passed = 0
+    compile_driver.VerifyPass = CountedVerifyPass
+    convs = {}
+    try:
+        for name, *dims in RESNET_LAYERS:
+            t0 = time.perf_counter()
+            art = compile_layer(*dims)
+            convs[name] = {"art": art, "seconds": time.perf_counter() - t0}
+    finally:
+        compile_driver.VerifyPass = VerifyPass
+    conv_fresh = [c["art"] for c in convs.values() if not c["art"].from_cache]
+    conv_verified = sum(verify_artifact(a).ok for a in conv_fresh)
+    clear_memo()
+    set_default_artifact_cache(ArtifactCache(str(compiled_path)))
+    for name, *dims in RESNET_LAYERS:
+        convs[name]["second"] = compile_layer(*dims)
+    for name, c in convs.items():
+        art, sel = c["art"], c["art"].selection
+        calls = sum(p.calls for p in art.instrs)
+        roles = role_extents(sel)
+        c["mnk"] = (roles["i"], roles["j"], roles["k"]) if calls == 1 else None
+        emit({"phase": "conv_compile", "layer": name, "batch": RESNET_BATCH,
+              "target": graph.name, "program": sel.program.name,
+              "calls": calls, "steps": [st.name for st in sel.steps],
+              "lowering": art.lowering["kind"],
+              "lowering_block": art.lowering.get("block"),
+              "lowering_grid": art.lowering.get("grid"),
+              "fused_mnk": c["mnk"], "modeled_cost_s": art.cost,
+              "seconds": c["seconds"], "fresh": not art.from_cache,
+              "second_pass_fresh": not c["second"].from_cache,
+              "second_pass_identical":
+              payload(art) == payload(c["second"])})
+    conv_refresh = sum(not c["second"].from_cache for c in convs.values())
+    emit({"phase": "conv_compile", "layers": len(convs),
+          "fresh": len(conv_fresh),
+          "passed_verify_pass": CountedVerifyPass.passed,
+          "verify_artifact_ok": conv_verified,
+          "second_pass_fresh": conv_refresh,
+          "left_out": ["conv2_3x3", "conv3_3x3"]})
+    if len(conv_fresh) != len(RESNET_LAYERS) \
+            or not CountedVerifyPass.passed == conv_verified == len(conv_fresh):
+        failures.append(f"conv compile: {len(conv_fresh)} fresh of "
+                        f"{len(RESNET_LAYERS)}, {CountedVerifyPass.passed} "
+                        f"through VerifyPass, {conv_verified} verified again")
+    if conv_refresh or any(payload(c["art"]) != payload(c["second"])
+                           for c in convs.values()):
+        failures.append(f"conv compile: the second pass compiled "
+                        f"{conv_refresh} fresh or gave another artifact")
+
     # ---- main path, phase plan: the compiler's tile ----------------------
     empty = cuda.BUILD_DIR / f"tuning-empty-{os.getpid()}.json"
     set_default_cache(TuningCache(str(empty)))
@@ -735,6 +839,56 @@ def main() -> int:
         if b["k1_launches"] != b["gemm_nodes"]:
             failures.append(f"graph {b['cg'].name}: {b['k1_launches']} K1 "
                             f"launches for {b['gemm_nodes']} GEMM nodes")
+
+    # ---- main path, phase learned: K1 at the learned model's block --------
+    t0 = time.perf_counter()
+    store = ModelStore(str(cuda.BUILD_DIR / f"models-{os.getpid()}-"
+                                            f"{time.time_ns()}.json"))
+    train_rows = train_suites(
+        LEARNED_SUITES, graph,
+        TuningCache(str(cuda.BUILD_DIR / f"tuning-learned-{os.getpid()}-"
+                                         f"{time.time_ns()}.json")),
+        store, seed=args.seed)
+    train_s = time.perf_counter() - t0
+    for r in train_rows:
+        emit({"phase": "learned_train", "family": r["family"],
+              "trained": r["trained"], "samples": r["n_samples"],
+              "mae_log": r.get("holdout_mae_log", r.get("train_mae_log")),
+              "train_mae_log": r.get("train_mae_log"),
+              "suites": LEARNED_SUITES, "suites_seconds": train_s})
+    if not any(r["trained"] and r["family"] == "matmul" for r in train_rows):
+        failures.append("learned: no matmul model was trained")
+    learned_cases = []
+    for name, c in convs.items():
+        if c["mnk"] is None:
+            continue
+        m, n, k = c["mnk"]
+        for dtype in (torch.float32, torch.bfloat16):
+            learned_cases.append({
+                "layer": name, "mnk": (m, n, k), "dtype": dtype,
+                "a": card_uniform((m, k)).to(dtype),
+                "b": card_uniform((k, n)).to(dtype)})
+    set_default_store(store)
+    try:
+        with counted("learned", ("gemm",)):
+            for c in learned_cases:
+                (m, n, k), a, b = c["mnk"], c["a"], c["b"]
+                if tuned_record(m, n, k) is not None:
+                    failures.append(f"learned {m}x{n}x{k}: a tuning-cache hit")
+                t0 = time.perf_counter()
+                c["block"] = predict_gemm_block(m, n, k)
+                c["predict_ms"] = (time.perf_counter() - t0) * 1e3
+                if c["block"] is None or tuned_block(m, n, k) != c["block"]:
+                    failures.append(f"learned {m}x{n}x{k}: the model gave "
+                                    f"{c['block']}, tuned_block "
+                                    f"{tuned_block(m, n, k)}")
+                    continue
+                c["out"] = gemm(a, b)       # tile=None: tuned_block's model
+                c["tile"] = route_tile(c["block"], operand_route(a, b))
+                c["learned_ms"] = time_ms(lambda: gemm(a, b, tile=c["tile"]),
+                                          LEARNED_REPS)
+    finally:
+        set_default_store(None)
 
     # ---- held against the plain versions, and timed -----------------------
     k1, k2 = [], []
@@ -916,7 +1070,7 @@ def main() -> int:
                 lambda: ref.gru_cell_ref(x0, h0, params), 50)
             step_lib_ms = time_ms(
                 lambda: torch.gru_cell(x0, h0, w_ih, w_hh, b_ih, b_hh), 50)
-            seq_ms = time_ms(seq, 5)
+            seq_ms = c["seq_ms"] = time_ms(seq, 5)
             seq_dev = device_ms(seq, 3, SEQ_KERNELS, "recurrence", other=True)
             seq_plain_ms = time_ms(lambda: ref.gru_seq_ref(xs, h0, params), 5)
             seq_lib_ms = time_ms(lambda: lib_gru(xs, h0[None]), 5)
@@ -1063,6 +1217,69 @@ def main() -> int:
           "seq_plain_ms": w_plain, "seq_bound_ms": w_bound[0],
           "seq_bound_by": w_bound[1], "max_abs_err": w_err,
           "rtol": GRU_TOL[0], "atol": GRU_TOL[1], "ok": w_ok})
+
+    # K1 at the learned block against the plain version, the plan tile and
+    # the library, in turns
+    for c in learned_cases:
+        if "out" not in c:
+            continue
+        (m, n, k), a, b, dtype = c["mnk"], c["a"], c["b"], c["dtype"]
+        want = ref.gemm_ref(a, b)
+        rtol, atol = GEMM_TOL[dtype]
+        if dtype == torch.float32:
+            atol *= float(want.abs().max())
+        err, ok = mismatch(c["out"], want, rtol, atol)
+        if not ok:
+            failures.append(f"learned {m}x{n}x{k} {dtype}: max err {err}")
+        plan_cfg, _ = plan_gemm(m, n, k, dtype=dtype, graph=graph,
+                                route=operand_route(a, b))
+        plan_ms = time_ms(lambda: gemm(a, b, tile=plan_cfg.tile), LEARNED_REPS)
+        learned_ms2 = time_ms(lambda: gemm(a, b, tile=c["tile"]), LEARNED_REPS)
+        plan_ms2 = time_ms(lambda: gemm(a, b, tile=plan_cfg.tile),
+                           LEARNED_REPS)
+        library_ms = time_ms(lambda: torch.matmul(a, b), LEARNED_REPS)
+        l_bound = bound(a.element_size() * (m * k + k * n + m * n),
+                        2.0 * m * n * k, dtype)
+        emit({"phase": "learned_gemm", "layer": c["layer"], "m": m, "n": n,
+              "k": k, "dtype": dtype_name(dtype),
+              "model_block": list(c["block"]), "tile": list(c["tile"]),
+              **launch_fields(a, b, c["tile"], m, n, k),
+              "predict_ms": c["predict_ms"],
+              "learned_ms": c["learned_ms"], "learned_ms_2": learned_ms2,
+              "plan_block": list(plan_cfg.block),
+              "plan_tile": list(plan_cfg.tile), "plan_split": plan_cfg.split,
+              "plan_ms": (plan_ms + plan_ms2) / 2, "library_ms": library_ms,
+              "library": "torch.matmul", "bound_ms": l_bound[0],
+              "bound_by": l_bound[1], "max_abs_err": err, "rtol": rtol,
+              "atol": atol, "ok": ok})
+
+    # the recurrent schedule on the modeled GPU beside K4's partition
+    for c in gru_cases:
+        batch, hidden = c["bh"]
+        t0 = time.perf_counter()
+        _, sel = gru_selection(batch, hidden)
+        rs = schedule_recurrent(sel, graph, carry={"Hout": "H"},
+                                streamed=("X",))
+        rec_s = time.perf_counter() - t0
+        u_copied = sum(op.region.nbytes() for op in rs.recursive.ops
+                       if op.kind == "copy" and op.region.buffer in U_BUFFERS)
+        f32_launch = gru_seq_launch(batch, hidden, hidden, sms, smem_limit)
+        bf_launch = gru_seq_launch(batch, hidden, hidden, sms, smem_limit,
+                                   torch.bfloat16)
+        emit({"phase": "recurrent", "batch": batch, "hidden": hidden,
+              "inp": hidden, "target": graph.name,
+              "copies": rs.copy_counts(),
+              "recursive_u_bytes_copied": u_copied,
+              "u_bytes_f32": 3 * hidden * hidden * 4,
+              "makespan_s": {name: getattr(rs, name).makespan
+                             for name in ("prime", "recursive", "finish")},
+              "total_time_128_s": rs.total_time(STEPS),
+              "seconds": rec_s,
+              "k4_u_bytes_on_chip": f32_launch.u_bytes_on_chip,
+              "k4_u_bytes": f32_launch.u_bytes,
+              "k4_bf16_u_bytes_on_chip": bf_launch.u_bytes_on_chip,
+              "k4_bf16_u_bytes": bf_launch.u_bytes,
+              "k4_f32_seq_ms": c["seq_ms"]})
 
     # the compiled blocks against the float64 reference, and timed
     for b in blocks:

@@ -1,8 +1,8 @@
 """The compilation driver: one entry point in front of the whole pipeline.
 
 ``compile_program`` is the general entry (any ISAMIR program, any system
-graph, any Approach); ``compile_gemm`` / ``compile_gru`` are the workload
-frontends the kernels, the tuner and the smoke run share;
+graph, any Approach); ``compile_gemm`` / ``compile_gru`` / ``compile_conv``
+are the workload frontends the kernels, the tuner and the smoke run share;
 ``compile_selection`` runs the back half of the pipeline when an instruction
 selection is already in hand (the search evaluators and per-chip fabric
 compiles); ``compile_fabric`` partitions a workload across a multi-chip
@@ -93,9 +93,21 @@ def gru_selection(batch: int, hidden: int,
     return prog, select_program(prog, I.tpu_isa())
 
 
+def conv_selection(**kw) -> tuple[Program, Selection]:
+    """conv2d through the ISAM-TVM axis-fusion extraction onto the MXU.
+    Returns (original program, selection over the transformed program)."""
+    from ..core.transforms import fuse_axes_for_calls
+    isa = [I.mxu_matmul()]
+    orig = K.conv2d(**kw)
+    prog, sel, steps = fuse_axes_for_calls(orig, isa)
+    sel = Selection(sel.program, tuple(steps), sel.instrs, sel.uncovered)
+    return orig, sel
+
+
 _FRONTENDS = {
     "gemm": lambda **kw: gemm_selection(**kw),
     "gru": lambda **kw: gru_selection(**kw),
+    "conv": lambda **kw: conv_selection(**kw),
 }
 
 
@@ -246,6 +258,13 @@ def _frontend_program(frontend: str, fe_args: dict, graph: SystemGraph):
         isa = I.tpu_isa()
         return prog, isa, True, lambda: select_program(prog, isa,
                                                        graph=graph)
+    if frontend == "conv":
+        orig = K.conv2d(**fe_args)
+
+        def build():
+            _, sel = conv_selection(**fe_args)
+            return sel
+        return orig, [I.mxu_matmul()], True, build
     raise CompileError(f"unknown frontend {frontend!r}")
 
 
@@ -266,6 +285,14 @@ def compile_gru(batch: int, hidden: int, inp: int | None = None,
         fe_args["inp"] = inp
     return _compile_frontend("gru", fe_args, graph, approach, backend,
                              cache, use_cache, verify)
+
+
+def compile_conv(approach=None, graph: SystemGraph | None = None, *,
+                 backend: str = "cost", cache: ArtifactCache | None = None,
+                 use_cache: bool = True, verify: bool = True,
+                 **kw) -> CompiledKernel:
+    return _compile_frontend("conv", kw, graph, approach, backend, cache,
+                             use_cache, verify)
 
 
 # --------------------------------------------------------------------------- #

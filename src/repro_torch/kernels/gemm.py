@@ -17,8 +17,9 @@ Each launch takes one of two main loops, by a rule fixed before the launch
 
 ``tile=(BM, BN, BK)`` is one block's tile and must be one the route is
 built for (``ROUTES``).  ``tile=None`` takes the tile of the tuned block in
-the port's tuning cache (``tuned_block``, mapped by ``block_tile``), and the
-route's ``default_tile`` when the cache has no record for the shape.  When
+the port's tuning cache (``tuned_block``, mapped by ``route_tile``), else the
+block the learned cost model predicts when a model store is active, and the
+route's ``default_tile`` when neither gives one.  When
 a launch's output tiles are fewer than the card's SMs, K is split
 (``split_k``): the main loop writes f32 partials of each K slice and a
 reduce kernel sums them in slice order and applies the epilogue.  One C
@@ -209,10 +210,24 @@ def tuned_record(m: int, n: int, k: int, graph=None):
 
 def tuned_block(m: int, n: int, k: int) -> tuple[int, int, int] | None:
     """The tuned (bm, bn, bk) block of an (m, n, k) GEMM (``tuned_record``),
-    clamped to the problem; ``None`` when the cache has none."""
-    from ..search.cache import clamp_tile
+    clamped to the problem.
+
+    Shapes that were *never* tuned ask the learned cost model next: when a
+    process-wide model store is active
+    (``repro_torch.search.model.set_default_store``), the matmul-family
+    ridge model ranks the tile sub-space by predicted cost on ``gpu_sm(8)``
+    and its winner, clamped, becomes the block.  No store, no model or an
+    unreadable store gives ``None``, as a cache miss does."""
+    from ..search.cache import CACHE_ERRORS, clamp_tile
     rec = tuned_record(m, n, k)
-    return None if rec is None else clamp_tile(rec.tile, m, n, k)
+    if rec is not None:
+        return clamp_tile(rec.tile, m, n, k)
+    try:
+        from ..search.model import predict_gemm_block
+        blk = predict_gemm_block(m, n, k)
+    except CACHE_ERRORS:
+        blk = None
+    return None if blk is None else clamp_tile(blk, m, n, k)
 
 
 #: the C entry of ``csrc/gemm.cu``: dtype, C's dtype, route, BM, BN, BK,

@@ -126,8 +126,8 @@ class TuningRecord:
 class JsonStore:
     """Shared keyed-JSON-artifact persistence — the one implementation of
     lazy load with corrupt-file tolerance, merge-on-save, and atomic
-    replace behind the tuning cache (and, once it is ported, the
-    learned-cost-model store).
+    replace behind both the tuning cache and the learned-cost-model store
+    (``repro_torch.search.model.ModelStore``).
 
     Subclasses set ``payload_key``/``schema`` and the entry codecs
     (``_decode`` raising ``KeyError/TypeError/ValueError`` on malformed

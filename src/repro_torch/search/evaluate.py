@@ -1,6 +1,6 @@
 """Candidate evaluation backends + oracle validation (paper Section 4).
 
-Two ways to score a config vector:
+Three ways to score a config vector:
 
   * ``CostModelEvaluator`` — the fast path: compile the candidate
     ParamApproach through the ``repro_torch.compile`` driver (Schedule +
@@ -8,6 +8,11 @@ Two ways to score a config vector:
     ``CompiledKernel``'s modeled makespan.  A cheap tile-count pre-check
     rejects degenerate configs (tiny tiles on huge extents explode the
     simulated stream) with ``inf`` instead of minutes of scheduling.
+
+  * ``LearnedEvaluator`` — the *surrogate* path: score by the trained ridge
+    model of ``repro_torch.search.model`` (microseconds per candidate, no
+    scheduling).  Used to rank large pools; real budgets still settle the
+    winner, so the tuned <= greedy contract never rests on a prediction.
 
   * ``MeasuredGemmEvaluator`` — wall-clock on the card: the candidate's
     block (``gemm_tile_for``) becomes a CUDA tile (``kernels.gemm.block_tile``)
@@ -192,6 +197,115 @@ class CostModelEvaluator:
             return cost
         finally:
             self.stats.schedule_s += time.perf_counter() - t0
+
+
+class LearnedEvaluator:
+    """Score a config by the **learned** cost model's prediction — no
+    scheduling, no compile; microseconds per candidate.
+
+    This is the ranking half of surrogate-guided search: predictions order a
+    large pool, and the real trial budget (``CostModelEvaluator`` /
+    measured) is reserved for the top of that order.  The evaluator keeps
+    the analytical tile-count guard so degenerate configs stay ``inf`` —
+    the model never trains on infeasible points, so it has no basis to
+    reject them itself.
+
+    ``for_selection`` resolves the model from a ``ModelStore`` (default:
+    the process-wide store) and returns ``None`` when no model covers the
+    program's family on this graph — callers fall back to the cost backend.
+    """
+
+    def __init__(self, model, selection: Selection, graph: SystemGraph,
+                 max_tiles: int = 4096):
+        self.model = model
+        self.sel = selection
+        self.graph = graph
+        from ..compile.features import role_extents
+        self._guard = CostModelEvaluator(selection, graph,
+                                         max_tiles=max_tiles)
+        self._predict = model.predictor(selection.program, graph,
+                                        role_extents(selection))
+        self.stats = self._guard.stats
+        #: config key -> guard verdict.  Surrogate search scores the same
+        #: configs repeatedly (pool ranking, then the neighbor walk, then
+        #: the final sweep); without the memo every ranking pays the
+        #: tile-count guard again for every config it has already screened.
+        self._feas: dict[tuple, bool] = {}
+
+    @classmethod
+    def for_selection(cls, selection: Selection, graph: SystemGraph,
+                      store=None, backend: str = "cost"
+                      ) -> "LearnedEvaluator | None":
+        from .model import get_default_store
+        store = store if store is not None else get_default_store()
+        if store is None:
+            return None
+        model = store.model_for(selection.program, graph, backend)
+        if model is None:
+            return None
+        return cls(model, selection, graph)
+
+    @property
+    def predictor(self):
+        """The raw (unguarded) ``config -> predicted seconds`` closure with
+        ``predict_many`` — for diagnostics like ``model.topk_regret`` that
+        score pre-screened configs.  Rankings that *choose* what to spend
+        real budget on must go through the evaluator itself (``__call__`` /
+        ``predict_many``), which keeps the tile-count guard."""
+        return self._predict
+
+    @property
+    def anchors(self) -> list[Config]:
+        """The cache-winner configs the model was trained on (its program
+        family's "known good" set) — surrogate search seeds."""
+        return [dict(c) for c in self.model.meta.get("anchors", [])]
+
+    def _feasible(self, config: Config) -> bool:
+        from .space import config_key
+        k = config_key(config)
+        got = self._feas.get(k)
+        if got is None:
+            got = self._feas[k] = bool(
+                self._guard.estimated_tiles(ParamApproach(config))
+                <= self._guard.max_tiles)
+        return got
+
+    def _feasible_many(self, configs: list) -> list[bool]:
+        """Memoized batch guard: unseen configs go through the vectorized
+        ``BatchPlan`` guard in one pass; seen configs are dict lookups."""
+        from .space import config_key
+        keys = [config_key(c) for c in configs]
+        todo = [(c, k) for c, k in zip(configs, keys) if k not in self._feas]
+        if todo:
+            feas, _ = self._guard.plan.analyze([c for c, _ in todo],
+                                               self._guard.max_tiles)
+            for (_, k), ok in zip(todo, feas):
+                self._feas[k] = bool(ok)
+        return [self._feas[k] for k in keys]
+
+    def predict_many(self, configs) -> list[float]:
+        """Guarded batch prediction: infeasible configs score ``inf`` so a
+        pool ranking can never put them in front of real-budget trials."""
+        configs = list(configs)
+        t0 = time.perf_counter()
+        scores = self._predict.predict_many(configs)
+        self.stats.predict_s += time.perf_counter() - t0
+        self.stats.evals += len(configs)
+        feasible = self._feasible_many(configs)
+        self.stats.guard_rejects += sum(1 for ok in feasible if not ok)
+        return [float(s) if ok else float("inf")
+                for ok, s in zip(feasible, scores)]
+
+    def __call__(self, config: Config) -> float:
+        self.stats.evals += 1
+        if not self._feasible(config):
+            self.stats.guard_rejects += 1
+            return float("inf")
+        t0 = time.perf_counter()
+        try:
+            return self._predict(config)
+        finally:
+            self.stats.predict_s += time.perf_counter() - t0
 
 
 def gemm_tile_for(config: Config, graph: SystemGraph,

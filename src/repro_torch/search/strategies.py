@@ -280,9 +280,8 @@ def surrogate_search(space: SearchSpace, evaluate: Evaluator,
                      seeds: list[Config] | None = None,
                      pool: int = 4096) -> SearchOutcome:
     """Surrogate-guided search: rank a large candidate pool by a *learned*
-    cost predictor (the JAX package's ``search/model.py``; its port is later
-    work, so here ``predict`` is any callable), then spend the real evaluation
-    budget only on the top of the ranking.
+    cost predictor (``repro_torch.search.model``), then spend the real
+    evaluation budget only on the top of the ranking.
 
     Budget split (all real evaluations go through the shared runner, so
     baseline-first and tuned <= greedy hold exactly as for the other

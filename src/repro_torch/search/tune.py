@@ -7,20 +7,26 @@ Suites (the paper's evaluation set, Section 6):
 
   * ``gemm``   — the DeepBench GEMM shapes of Figure 3,
   * ``gru``    — the GRU cell (Figure 4 sizes),
+  * ``conv``   — conv→matmul extraction cases (``core/kernels_ir.py`` convs
+                 through the ``fuse_axes_for_calls`` ISAM-TVM path),
   * ``fabric`` — distributed GEMMs on a modelled multi-chip fabric
                  (``--chips`` / ``--topology``): tunes (partition axis,
                  collective algorithm, per-chip tiles) *jointly* against the
                  ``repro_torch.fabric`` event-driven simulator, anchored to
                  the untuned multi-chip baseline (axis=m, ring, greedy
-                 tiles); cost backend only.
+                 tiles); cost backend only,
+  * ``all``    — every single-chip suite (fabric stays explicit).
 
 Backends: ``cost`` scores a candidate by the modeled makespan of its
 schedule on the target (numpy only, no card); ``measure`` times K1
 (``csrc/gemm.cu``) at the candidate's tile on the CUDA card with CUDA
 events.  ``measure`` needs the card: without one the run exits non-zero and
-writes no record.  GRU cases stay on the cost backend (there is no measured
-GRU kernel).  Measured runs tune one case at a time (``--workers 1``), so no
-two timings share the card.
+writes no record.  GRU and conv cases stay on the cost backend (they have
+no ``gemm_shape``, so no measured kernel).  Measured runs tune one case at
+a time (``--workers 1``), so no two timings share the card.  ``learned``
+runs surrogate-guided search: a trained ``repro_torch.search.model`` ranks
+the pool and the cost backend settles the real trials (plain cost when no
+model covers the case's program family).
 
 For every case the tuner (1) maps + selects instructions once, (2) searches
 the ParamApproach config space with the chosen strategy — the greedy-
@@ -43,13 +49,14 @@ import sys
 import time
 from dataclasses import dataclass, field
 
-from ..compile import gemm_selection, gru_selection
+from ..compile import conv_selection, gemm_selection, gru_selection
 from ..core.ir import Program
 from ..core.isel import Selection
 from ..core.sysgraph import SystemGraph, gpu_sm
 from .cache import TuningCache, TuningRecord, default_cache_path
-from .evaluate import (CostModelEvaluator, MeasuredGemmEvaluator,
-                       ValidationReport, gemm_tile_for, validate_selection)
+from .evaluate import (CostModelEvaluator, LearnedEvaluator,
+                       MeasuredGemmEvaluator, ValidationReport, gemm_tile_for,
+                       validate_selection)
 from .space import ParamApproach, SearchSpace, tuning_key
 from .strategies import STRATEGIES, SearchOutcome
 
@@ -74,6 +81,14 @@ VALIDATE_DIM_CAP = 192
 
 # Fabric-suite shapes: one large library-friendly GEMM and one awkward one.
 FABRIC_GEMM_SIZES = [(5124, 700, 2048), (1760, 128, 1760)]
+
+# conv→matmul extraction cases: (name, conv2d kwargs).  Small enough that
+# per-trial rescheduling stays cheap; the mapping structure (im2col-style
+# axis fusion onto mxu.matmul) is identical to the ResNet layers.
+CONV_CASES = [
+    ("conv3x3", dict(batch=4, h=14, w=14, kh=3, kw=3, cin=32, cout=64)),
+    ("conv1x1", dict(batch=4, h=28, w=28, kh=1, kw=1, cin=64, cout=64)),
+]
 
 
 @dataclass
@@ -105,12 +120,25 @@ def _gru_case(batch: int, hidden: int) -> TuneCase:
     return TuneCase(f"gru_{batch}x{hidden}", prog, sel, prog, proxy, psel)
 
 
+def _conv_case(name: str, kw: dict) -> TuneCase:
+    orig, sel = conv_selection(**kw)
+    pkw = dict(kw, batch=min(kw["batch"], 2), h=min(kw["h"], 6),
+               w=min(kw["w"], 6), cin=min(kw["cin"], 8),
+               cout=min(kw["cout"], 8))
+    porig, psel = conv_selection(**pkw)
+    return TuneCase(f"{name}_{kw['batch']}x{kw['h']}x{kw['w']}"
+                    f"x{kw['cin']}x{kw['cout']}",
+                    sel.program, sel, orig, porig, psel)
+
+
 def build_cases(suite: str, limit: int | None = None) -> list[TuneCase]:
     cases: list[TuneCase] = []
-    if suite == "gemm":
+    if suite in ("gemm", "all"):
         cases += [_gemm_case(*s) for s in DEEPBENCH_GEMM_SIZES]
-    if suite == "gru":
+    if suite in ("gru", "all"):
         cases += [_gru_case(*s) for s in GRU_SIZES]
+    if suite in ("conv", "all"):
+        cases += [_conv_case(n, kw) for n, kw in CONV_CASES]
     return cases[:limit] if limit else cases
 
 
@@ -184,10 +212,31 @@ def _card(evaluate: MeasuredGemmEvaluator) -> dict:
 
 def tune_case(case: TuneCase, graph: SystemGraph, strategy: str,
               trials: int, seed: int, backend: str,
-              validate: bool = True) -> CaseReport:
+              validate: bool = True, model_store=None,
+              strategy_explicit: bool = True) -> CaseReport:
     t0 = time.time()
     space = SearchSpace.for_graph(graph)
     cost_eval = CostModelEvaluator(case.selection, graph)
+    predict = None
+    if backend == "learned":
+        # The learned backend is surrogate-guided search: a trained model
+        # ranks the pool, the *cost* backend settles the real trials — so
+        # records land under 'cost' (one scale, and the kernels' lookup
+        # finds them).  No model for this family => plain cost backend.
+        learned = LearnedEvaluator.for_selection(case.selection, graph,
+                                                store=model_store)
+        backend = "cost"
+        if learned is not None:
+            predict = learned     # guarded: infeasible configs rank last
+            if strategy_explicit and strategy != "surrogate":
+                print(f"# {case.name}: --backend learned runs the "
+                      f"surrogate strategy (--strategy {strategy} ignored)",
+                      file=sys.stderr)
+        else:
+            print(f"# {case.name}: no trained model for this program "
+                  "family; falling back to the cost backend "
+                  "(train one: python -m repro_torch.search.model train)",
+                  file=sys.stderr)
     if backend == "measure" and case.gemm_shape is not None:
         m, n, k = case.gemm_shape
         evaluate = MeasuredGemmEvaluator(m, n, k, graph, seed=seed)
@@ -195,7 +244,13 @@ def tune_case(case: TuneCase, graph: SystemGraph, strategy: str,
         backend = "cost"
         evaluate = cost_eval
 
-    outcome = STRATEGIES[strategy](space, evaluate, trials=trials, seed=seed)
+    if predict is not None:
+        outcome = STRATEGIES["surrogate"](space, evaluate, trials=trials,
+                                          seed=seed, predict=predict,
+                                          seeds=learned.anchors)
+    else:
+        outcome = STRATEGIES[strategy](space, evaluate, trials=trials,
+                                       seed=seed)
     if evaluate is not cost_eval and not math.isfinite(outcome.best_cost):
         # A "measure" record would be meaningless yet preferred by
         # lookup_gemm; falling back to the cost model would hide the card.
@@ -234,15 +289,23 @@ def tune_case(case: TuneCase, graph: SystemGraph, strategy: str,
                       outcome=outcome, validation=validation,
                       elapsed_s=time.time() - t0,
                       config=dict(outcome.best_config),
-                      counters=_case_counters(cost_eval), measured=measured)
+                      counters=_case_counters(cost_eval, predict),
+                      measured=measured)
 
 
-def _case_counters(cost_eval: CostModelEvaluator) -> dict:
+def _case_counters(cost_eval: CostModelEvaluator, predict=None) -> dict:
     """Per-case throughput counters for ``--json`` rows: the cost
     evaluator's ``EvalStats`` (evals, guard rejects, schedule-key memo hits,
-    fresh vs incremental schedules, schedule wall time) and the resulting
-    configs/sec over the evaluator's own wall time."""
+    fresh vs incremental schedules, schedule/predict wall split) plus the
+    surrogate predictor's prediction time when one ranked the pool, and the
+    resulting configs/sec over the evaluator's own wall time."""
     counters = cost_eval.stats.as_dict()
+    if predict is not None and getattr(predict, "stats", None) is not None \
+            and predict.stats is not cost_eval.stats:
+        counters["evals"] += predict.stats.evals
+        counters["guard_rejects"] += predict.stats.guard_rejects
+        counters["predict_s"] = round(
+            counters["predict_s"] + predict.stats.predict_s, 6)
     wall = counters["schedule_s"] + counters["predict_s"]
     counters["configs_per_sec"] = (round(counters["evals"] / wall, 1)
                                    if wall > 0 else 0.0)
@@ -330,29 +393,44 @@ def _tune_worker(payload: dict) -> tuple[int, CaseReport]:
                                      payload["trials"], payload["seed"],
                                      validate=payload["validate"])
     case = build_cases(payload["suite"], payload["limit"])[idx]
+    model_store = None
+    if payload["backend"] == "learned":
+        from .model import ModelStore
+        model_store = ModelStore(payload["model"])
     return idx, tune_case(case, make_graph(payload["graph"]),
                           payload["strategy"], payload["trials"],
                           payload["seed"], payload["backend"],
-                          validate=payload["validate"])
+                          validate=payload["validate"],
+                          model_store=model_store,
+                          strategy_explicit=payload["strategy_explicit"])
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.search.tune",
         description="Joint mapping/schedule autotuner with persistent cache.")
-    ap.add_argument("--suite", choices=["gemm", "gru", "fabric"],
+    ap.add_argument("--suite",
+                    choices=["gemm", "gru", "conv", "fabric", "all"],
                     default="gemm")
     ap.add_argument("--chips", type=int, default=4,
                     help="fabric suite: number of chips")
     ap.add_argument("--topology", choices=["ring", "torus", "host"],
                     default="ring", help="fabric suite: fabric shape")
     ap.add_argument("--trials", type=int, default=32)
-    ap.add_argument("--strategy", choices=sorted(STRATEGIES),
-                    default="hillclimb")
-    ap.add_argument("--backend", choices=["cost", "measure"], default="cost",
+    ap.add_argument("--strategy", choices=sorted(STRATEGIES), default=None,
+                    help="search strategy (default hillclimb; --backend "
+                         "learned always runs 'surrogate')")
+    ap.add_argument("--backend", choices=["cost", "measure", "learned"],
+                    default="cost",
                     help="'cost' scores the modeled schedule; 'measure' times "
-                         "K1 on the CUDA card (needs one; GRU cases stay on "
-                         "'cost')")
+                         "K1 on the CUDA card (needs one; GRU and conv cases "
+                         "stay on 'cost'); 'learned' runs surrogate-guided "
+                         "search — a trained repro_torch.search.model ranks "
+                         "the pool, the cost model settles the real trials "
+                         "(falls back to 'cost' when no model is trained)")
+    ap.add_argument("--model", default=None, metavar="PATH",
+                    help="model store for --backend learned (default: the "
+                         "repro_torch.search.model default store)")
     ap.add_argument("--target", choices=list(GRAPH_NAMES), default="gpu_sm",
                     help="modeled hardware target to tune against")
     ap.add_argument("--cache", default=None,
@@ -368,7 +446,11 @@ def main(argv=None) -> int:
     ap.add_argument("--no-validate", action="store_true")
     ap.add_argument("--json", default=None, help="write the report here")
     args = ap.parse_args(argv)
-    strategy = args.strategy
+    # The resolved strategy (what the header/meta report): learned-backend
+    # runs are surrogate-guided unless the user forced something else —
+    # and then tune_case warns that the flag is ignored.
+    strategy = args.strategy or ("surrogate" if args.backend == "learned"
+                                 else "hillclimb")
 
     if args.backend == "measure":
         if args.suite == "fabric":
@@ -391,6 +473,14 @@ def main(argv=None) -> int:
     reports: list[CaseReport] = []
 
     if args.suite == "fabric":
+        if args.backend == "learned":
+            # No fabric-family models (the feature schema has no
+            # part_axis/collective terms); silently running the default
+            # path would misreport what was tuned.
+            print("--backend learned is not supported for --suite fabric "
+                  "(train targets single-chip program families); use "
+                  "--backend cost", file=sys.stderr)
+            return 2
         from ..fabric.topology import make_topology
         topo = make_topology(args.topology, args.chips)
         shapes = FABRIC_GEMM_SIZES[:args.limit] if args.limit \
@@ -419,17 +509,26 @@ def main(argv=None) -> int:
               f"strategy={strategy} trials={args.trials} "
               f"backend={args.backend} graph={graph.name}")
         print(f"# cache: {cache.path}")
+        model_store = None
+        if args.backend == "learned":
+            from .model import ModelStore
+            model_store = ModelStore(args.model)
         by_name = {case.name: case for case in cases}
         runs = [lambda case=case: tune_case(
                     case, graph, strategy, args.trials, args.seed,
-                    args.backend, validate=not args.no_validate)
+                    args.backend, validate=not args.no_validate,
+                    model_store=model_store,
+                    strategy_explicit=args.strategy is not None)
                 for case in cases]
         payloads = [{"idx": i, "suite": args.suite, "limit": args.limit,
                      "graph": args.target, "strategy": strategy,
                      "trials": args.trials, "seed": args.seed,
-                     "backend": args.backend,
-                     "validate": not args.no_validate}
+                     "backend": args.backend, "model": args.model,
+                     "validate": not args.no_validate,
+                     "strategy_explicit": args.strategy is not None}
                     for i in range(len(cases))]
+        # Provenance from the outcome, not the CLI flag: --backend
+        # learned swaps the strategy to 'surrogate' per case.
         recorder = lambda rep: record_for(  # noqa: E731
             by_name[rep.name], rep, graph, rep.outcome.strategy)
 

@@ -496,6 +496,59 @@ def test_slice_on_card(cuda_device):
                                atol=1e-5)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_at_the_learned_models_block(cuda_device, tmp_path, monkeypatch,
+                                       dtype):
+    """K1 through ``gemm(a, b)`` with no tile on a shape the tuning cache
+    has never seen (conv3_1x1b of ResNet-50 at minibatch 28, extracted as
+    one GEMM): the tile comes from ``tuned_block``'s model branch."""
+    from repro_torch.kernels import gemm as gemm_mod
+    from repro_torch.kernels.gemm import (route_tile, tuned_block,
+                                          tuned_record)
+    from repro_torch.search.cache import TuningCache, set_default_cache
+    from repro_torch.search.model import (ModelStore, fresh_labels,
+                                          model_key, predict_gemm_block,
+                                          set_default_store, train_family)
+    from repro_torch.search.tune import _gemm_case
+    m, n, k = 21952, 512, 128
+    graph = gpu_sm(8)
+    samples = fresh_labels(_gemm_case(256, 192, 130), graph, n=40, seed=0)
+    model, _ = train_family(model_key("matmul", graph), "matmul", samples,
+                            graph)
+    store = ModelStore(str(tmp_path / "models.json"))
+    store.store(model)
+    seen = []
+    check = gemm_mod._check_tile
+
+    def spy(tile, route):
+        seen.append(tuple(tile))
+        return check(tile, route)
+    monkeypatch.setattr(gemm_mod, "_check_tile", spy)
+    set_default_cache(TuningCache(str(tmp_path / "tuning.json")))
+    set_default_store(store)
+    try:
+        assert tuned_record(m, n, k) is None
+        block = predict_gemm_block(m, n, k)
+        assert block is not None and tuned_block(m, n, k) == block
+        rng = np.random.default_rng(11)
+        a = to_torch(rand(rng, (m, k)), dtype, cuda_device)
+        b = to_torch(rand(rng, (k, n)), dtype, cuda_device)
+        before = gemm.launches
+        got = gemm(a, b)
+        torch.cuda.synchronize()
+    finally:
+        set_default_store(None)
+        set_default_cache(None)
+    assert gemm.launches == before + 1
+    assert seen == [route_tile(block, operand_route(a, b))]
+    want = ref.gemm_ref(a, b)
+    tol = dict(TOL[dtype])
+    if dtype == torch.float32:
+        tol["atol"] *= float(want.abs().max())
+    np.testing.assert_allclose(as_f32(got), as_f32(want), **tol)
+
+
 # --------------------------------------------------------------------------- #
 # The graph tier on the card
 # --------------------------------------------------------------------------- #

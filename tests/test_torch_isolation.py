@@ -34,7 +34,8 @@ def test_importing_the_port_loads_no_jax():
                          timeout=300)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
-    for name in ("core.scheduler", "core.transforms", "compile.keys",
+    for name in ("core.scheduler", "core.transforms", "core.recurrent",
+                 "compile.keys", "compile.features", "search.model",
                  "compile.driver", "compile.cache", "verify",
                  "verify.diagnostics", "verify.program", "verify.selection",
                  "verify.schedule", "verify.artifact", "verify.fabric",
