@@ -29,7 +29,7 @@ launch the hand-written CUDA kernels with the plan.
    the same pipeline and cache, and again from the file with the memo
    cleared (``conv_compile`` lines: calls, transform steps, lowering, the
    fused GEMM (m, n, k) of a one-call selection, seconds).
-4. Five phases of the main path, each with every launch counter set to 0
+4. Six phases of the main path, each with every launch counter set to 0
    just before it and read just after (one ``launches`` line each):
 
    * ``plan`` — with an empty tuning cache as the default, so the tile is
@@ -68,7 +68,28 @@ launch the hand-written CUDA kernels with the plan.
      the tuning cache missing the shape and the model predicting a block,
      K1 through ``gemm(a, b)`` with no tile (``tuned_block``'s model
      branch picks it), and K1 at that tile timed (20 calls).  The store is
-     deactivated afterwards.
+     deactivated afterwards;
+   * ``serve`` — the model zoo's serving path, which runs no K1-K4 (the JAX
+     models reach no Pallas kernel: their products are ``jnp.dot`` and
+     ``jnp.einsum``, and the port's are ``torch.matmul`` and
+     ``torch.einsum``), so every count of its ``launches`` line is 0.  Each
+     run of ``SERVE_RUNS`` builds its model with ``build_model`` on the
+     card, draws its weights with ``init`` from a CUDA ``torch.Generator``
+     (f32 parameters; Mixtral's experts then perturbed, one from another),
+     and serves a batch (tokens uniform over the vocabulary; whisper's 1500
+     frames uniform(-1, 1)) through ``launch.serve.generate`` in bf16
+     activations, then the same weights under the f32 activation config
+     (``cfg.scaled(dtype="float32")``).  The runs: qwen2-7b at its full
+     config, 4 x 16 tokens -> 16 and 4 x 4096 -> 16 (the query-chunked
+     prefill: 2 chunks of 2048); mixtral-8x7b at full width, 2 of its 32
+     layers; whisper-medium at its full config.  One ``serve`` line per
+     run: event-timed prefill and decode per token (``generate``'s
+     ``record``), the cast of the weights (once per ``generate``), tokens a
+     second over ``generate``'s wall time, ``max_memory_allocated``, the
+     parameters' bytes, the bounds, and the gates; in bf16 also a profiler
+     trace of 4 decode steps (device time against event time).  Then the
+     CLI once, ``python -m repro_torch.launch.serve --arch qwen2-7b`` run in
+     process on the card (``serve_cli`` line).
 
    K1 and K2 run on the main loop their dtype and K take (``wgmma``: bf16
    after one transposing pass of B; ``simt``: f32), with split-K where the
@@ -129,8 +150,10 @@ launch the hand-written CUDA kernels with the plan.
    records, or a block's K1 launches differ from its GEMM nodes or a
    tensor of it disagrees with the reference, or no matmul model was
    trained, or an extracted GEMM hit the tuning cache, got no prediction
-   or disagreed with its plain version; when there is no card it prints
-   nothing and exits 1.
+   or disagreed with its plain version, or a serve run failed a gate (decode
+   against teacher forcing, greedy against the teacher's argmax, finite)
+   or the CLI returned no (4, 16) tokens on the card; when there is no card
+   it prints nothing and exits 1.
 
 Inputs: uniform(-1, 1) from ``np.random.default_rng(seed)``; the GRU
 weights are uniform(-1/sqrt(H), 1/sqrt(H)), PyTorch's own GRU init.
@@ -141,7 +164,20 @@ same with max|A @ B + bias|, the activation's input; GEMM and K2 bf16
 rtol = atol = 2e-2 (``tests/test_kernels.py``); one GRU step (K3) rtol =
 atol = 1e-5 and the GRU sequence rtol 1e-4, atol 1e-5
 (``tests/test_kernels.py``); bf16 GRU steps and sequences rtol = atol =
-2e-2, JAX's bf16 tolerance.
+2e-2, JAX's bf16 tolerance.  Serving (``SERVE_TOL``): every step's logits
+from ``generate`` against ``logits`` of the prompt plus the generated
+tokens (teacher forcing) within 1e-3 * max|teacher| under the f32
+activation config (``tests/test_models.py``'s tolerance for the attention
+archs) and 5e-2 * max|teacher| in bf16 (the two paths multiply at other
+shapes, so cuBLAS sums in other orders, and bf16 rounds the residual stream
+after every layer); each greedy token equal to the teacher's argmax wherever
+the teacher's top-2 margin exceeds that tolerance; every logit finite.
+With MoE layers in bf16, a position whose experts differ between the two
+paths in some layer (a near tie of router probabilities that rounding
+breaks the other way) is counted (``rerouted_positions``) and held to
+neither of the first two gates, and at least half the positions must be
+held: the first card run found one such position, at 7.9% of
+max|teacher|, where every other position was within 1.6%.
 Bounds: the larger of bytes (each input read once, each output written
 once) over 3.35 TB/s and operations (2mnk for a GEMM) over 67 TFLOP/s (f32,
 CUDA cores) or 989 TFLOP/s (bf16) — NVIDIA H100 SXM data-sheet peaks at
@@ -150,7 +186,11 @@ activation's torch op: two launches where there is an activation.  In the
 ``kernels`` line each time sums that kernel's calls over the main path's
 shapes, one call per shape (for K3, one step; K1 at the tuned tile; K3
 and K4 in f32 and bf16 at the DeepBench sizes), and ``launches`` sums the
-five phases.
+six phases.  A serve run's bounds (``serve_bounds``): the prefill's
+operations (2 x the parameters outside the embedding table x the tokens,
+plus the full square of attention scores the model computes) over the bf16
+peak, and a decode step's bytes (every weight it reads in bf16, the KV
+cache, B rows of the table) over 3.35 TB/s.
 """
 from __future__ import annotations
 
@@ -220,6 +260,23 @@ LEARNED_SUITES = "gemm,conv"
 LEARNED_REPS = 20
 #: the GRU's weights the recurrent schedule copies each step
 U_BUFFERS = ("Ur", "Uz", "Un")
+#: the serve phase's runs: (name, arch, config overrides, batch, prompt
+#: length, tokens generated).  Mixtral keeps 2 of its 32 layers (32 layers
+#: of f32 parameters are 187 GB) and takes capacity_factor = E / top_k = 4,
+#: with which no token can be dropped: at the config's 1.25 a 4-token decode
+#: step has a capacity of 1 a expert and drops tokens that the prefill of
+#: the same sequence keeps, so decode could not match teacher forcing
+SERVE_RUNS = [
+    ("qwen2-7b/short", "qwen2-7b", {}, 4, 16, 16),
+    ("qwen2-7b/long", "qwen2-7b", {}, 4, 4096, 16),
+    ("mixtral-8x7b/L2", "mixtral-8x7b", {"n_layers": 2,
+                                         "capacity_factor": 4.0}, 4, 16, 16),
+    ("whisper-medium", "whisper-medium", {}, 4, 16, 16),
+]
+#: decode against teacher forcing: max |decode - teacher| over every step's
+#: logits, as a share of max |teacher|; f32 is tests/test_models.py's
+#: tolerance for the attention archs
+SERVE_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
 
 
 def nvidia_smi(query: str) -> str:
@@ -399,6 +456,252 @@ def node_ms(cg, env: dict, dev, reps: int = 3) -> dict:
             out["k1_nodes"] += time_ms(
                 lambda: run_gemm_node(node, lowering, ins), reps)
     return out
+
+
+def serve_bounds(model, B: int, T: int, new: int) -> dict:
+    """Least times of the serve run on the data-sheet peaks (in the
+    activation dtype): the prefill's operations (2 x the parameters a token
+    meets, outside the embedding table, x B*T tokens, plus the attention's
+    full square of scores, as the model computes it) and one decode step's
+    bytes (every weight the step reads, cast once to the activation dtype;
+    the cache; B rows of the table) at pos T + new / 2."""
+    cfg, dt = model.cfg, model.dtype
+    size = torch.tensor([], dtype=dt).element_size()
+    per_token = sum(p.numel() for n, p in model.named_parameters()
+                    if n != "embed")
+    if cfg.family == "audio":                   # the decoder's weights
+        per_token -= sum(p.numel() for p in model.enc.parameters())
+    H, hd, L = cfg.n_heads, cfg.hd, cfg.n_layers
+    S = T + new // 2
+    cache = 2 * L * B * S * cfg.n_kv_heads * hd * size
+    if cfg.family == "audio":
+        cache += 2 * L * B * cfg.frontend_tokens * cfg.n_kv_heads * hd * size
+    ops = 2.0 * per_token * B * T + L * 4.0 * B * H * T * T * hd
+    if cfg.family == "audio":                   # the encoder's 1500 frames
+        Ta = cfg.frontend_tokens
+        enc = sum(p.numel() for p in model.enc.parameters())
+        ops += 2.0 * enc * B * Ta + cfg.encoder_layers * 4.0 * B * H * Ta \
+            * Ta * hd + L * 4.0 * B * H * T * Ta * hd
+    step_bytes = per_token * size + cache + B * cfg.d_model * size
+    return {"prefill_bound_ms": ops / PEAK[dt] * 1e3,
+            "prefill_bound_by": "operations",
+            "decode_bound_ms": max(step_bytes / HBM_BW,
+                                   2.0 * per_token * B / PEAK[dt]) * 1e3,
+            "decode_bound_by": "bytes", "decode_step_bytes": step_bytes,
+            "prefill_flop": ops}
+
+
+def serve_batch(cfg, B: int, T: int, dev, gen) -> dict:
+    """Prompt tokens uniform over the vocabulary; whisper's frame
+    embeddings uniform(-1, 1) in the activation dtype."""
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, T),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    if cfg.family == "audio":
+        batch["audio_embeds"] = (torch.rand(
+            (B, cfg.frontend_tokens, cfg.d_model), generator=gen,
+            device=dev) * 2 - 1).to(cfg.activation_dtype)
+    return batch
+
+
+def perturb_experts(model, gen) -> None:
+    """Make each MoE expert its own: the init repeats one draw in every
+    expert, and with identical experts routing changes nothing."""
+    with torch.no_grad():
+        for layer in model.layers:
+            for w in (layer.ffn.w_gate, layer.ffn.w_up, layer.ffn.w_down):
+                for e in range(w.shape[0]):
+                    w[e].mul_(1 + 0.3 * torch.randn(
+                        w.shape[1:], generator=gen, device=w.device))
+
+
+@contextlib.contextmanager
+def record_routing(routes: list):
+    """Append each MoE call's expert choice (sorted, one row a token) to
+    ``routes`` while the block runs."""
+    from repro_torch.models import moe
+    real = moe.top_k
+
+    def spy(probs, k):
+        vals, idx = real(probs, k)
+        routes.append(idx.sort(-1).values.reshape(-1, k))
+        return vals, idx
+
+    moe.top_k = spy
+    try:
+        yield routes
+    finally:
+        moe.top_k = real
+
+
+def rerouted(routes: list, L: int, B: int, T: int, new: int
+             ) -> torch.Tensor:
+    """(B, T + new) bool: where a token's experts in some layer differ
+    between ``generate`` (prefill, then one call a layer and step) and
+    teacher forcing (the last L calls)."""
+    gen, tf = routes[:-L], routes[-L:]
+    K = tf[0].shape[-1]
+    out = torch.zeros(B, T + new, dtype=torch.bool, device=tf[0].device)
+    for layer in range(L):
+        want = tf[layer].view(B, T + new, K)
+        out[:, :T] |= (gen[layer].view(B, T, K) != want[:, :T]).any(-1)
+        for i in range(new):
+            got = gen[L + i * L + layer].view(B, K)
+            out[:, T + i] |= (got != want[:, T + i]).any(-1)
+    return out
+
+
+def serve_gates(model, batch, new: int) -> dict:
+    """``generate`` (timed) and the gates on it: every step's logits against
+    ``logits`` of the prompt plus the generated tokens (teacher forcing),
+    within SERVE_TOL of max |teacher|; each greedy token equal to the
+    teacher's argmax where the teacher's top-2 margin is above that
+    tolerance; every logit finite.  With MoE layers, a position whose
+    experts differ between the two paths in some layer (``rerouted``: a near
+    tie of router probabilities that rounding breaks the other way) is
+    held to neither of the first two gates in bf16, and counted, and at
+    least half the positions must be held; in f32 no position is left
+    out."""
+    from repro_torch.launch.serve import generate
+    cfg = model.cfg
+    dev = batch["tokens"].device
+    B, T = batch["tokens"].shape
+    prefix = cfg.frontend_tokens if cfg.family == "vlm" else 0
+    generate(model, batch, 1)                       # warm-up
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec, routes = {}, []
+    with record_routing(routes) if cfg.n_experts else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        toks = generate(model, batch, new, record=rec)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        with torch.no_grad():
+            full = dict(batch, tokens=torch.cat([batch["tokens"], toks], 1))
+            ref = model.logits(full)[:, prefix + T - 1:].float()
+    got = rec.pop("logits").float()
+    tol = SERVE_TOL[model.dtype]
+    held = torch.ones(B, new + 1, dtype=torch.bool, device=dev)
+    moved = 0
+    if cfg.n_experts:
+        moved_at = rerouted(routes, cfg.n_layers, B, T, new)
+        moved = int(moved_at.sum())
+        if model.dtype != torch.float32:
+            held = ~moved_at[:, T - 1:]
+    max_ref = float(ref.abs().max())
+    err = float(((got - ref).abs().amax(-1) * held).max())
+    top2 = ref[:, :new].topk(2, dim=-1).values
+    sure = ((top2[..., 0] - top2[..., 1]) > tol * max_ref) & held[:, :new]
+    argmax_ok = bool((toks == ref[:, :new].argmax(-1))[sure].all())
+    finite = bool(torch.isfinite(got).all() and torch.isfinite(ref).all())
+    decode = rec["decode_ms"]
+    return {"dtype": dtype_name(model.dtype), "wall_s": wall,
+            "tok_per_s": B * new / wall, "cast_ms": rec["cast_ms"],
+            "prefill_ms": rec["prefill_ms"],
+            "decode_ms_per_token": sum(decode) / len(decode),
+            "decode_ms": decode, "max_memory_allocated": peak,
+            "max_err_over_max_ref": err / max_ref, "max_ref": max_ref,
+            "tol": tol, "positions_held": int(held.sum()),
+            "rerouted_positions": moved,
+            "rerouted_max_err_over_max_ref":
+            float((got - ref).abs().amax(-1)[~held].max()) / max_ref
+            if not bool(held.all()) else None,
+            "tokens_checked": int(sure.sum()), "tokens": B * new,
+            "argmax_ok": argmax_ok, "finite": finite,
+            "ok": err <= tol * max_ref and argmax_ok and finite
+            and int(held.sum()) >= B * (new + 1) // 2,
+            "sample": toks[0, :8].tolist()}
+
+
+def decode_profile(model, batch, steps: int = 4) -> dict:
+    """Device time of the decode step against its event-timed time: the
+    prompt prefilled, then ``steps`` greedy decode steps (``generate``'s
+    loop) under ``torch.profiler``; the busy share is the device time the
+    trace holds over the steps' event-timed time."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = model.cfg
+    B, T = batch["tokens"].shape
+    prefix = cfg.frontend_tokens if cfg.family == "vlm" else 0
+    with torch.no_grad(), model.cast_weights():
+        cache, logits = model.prefill(batch, max_len=prefix + T + steps)
+        cur = logits[:, -1].argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            start.record()
+            for i in range(steps):
+                logits, cache = model.decode_step(cache, cur, prefix + T + i)
+                cur = logits.argmax(-1).to(torch.int32)
+            end.record()
+            torch.cuda.synchronize()
+    dev_ms = sum(ev.self_device_time_total for ev in prof.key_averages()) \
+        / 1e3 / steps
+    event_ms = start.elapsed_time(end) / steps
+    return {"decode_device_ms_per_token": dev_ms,
+            "decode_event_ms_per_token": event_ms,
+            "device_busy_share": dev_ms / event_ms if event_ms else None}
+
+
+def run_serve(dev, seed: int, failures: list) -> None:
+    """The serve phase: each of SERVE_RUNS through ``build_model`` and
+    ``launch.serve.generate`` in bf16, then the same weights under the f32
+    activation config; the CLI once at qwen2-7b's full config."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    def twin(model, cfg):
+        """A model of ``cfg`` holding ``model``'s parameters (no copy)."""
+        out = build_model(cfg, device="meta")
+        out.load_state_dict(model.state_dict(), assign=True)
+        return out
+
+    model = None
+    for name, arch, over, B, T, new in SERVE_RUNS:
+        cfg = get_config(arch).scaled(**over)
+        if model is None or model.cfg != cfg:
+            model = None
+            torch.cuda.empty_cache()
+            gen = torch.Generator(dev).manual_seed(seed)
+            model = build_model(cfg).init(gen)
+            if cfg.n_experts:
+                perturb_experts(model, gen)
+        batch = serve_batch(cfg, B, T, dev, torch.Generator(dev).manual_seed(
+            seed + 1))
+        bf16 = serve_gates(model, batch, new)
+        bf16.update(decode_profile(model, batch))
+        f32 = serve_gates(twin(model, cfg.scaled(dtype="float32")), batch,
+                          new)
+        param_bytes = sum(p.numel() * p.element_size()
+                          for p in model.parameters())
+        emit({"phase": "serve", "run": name, "arch": arch,
+              "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+              "n_experts": cfg.n_experts, "batch": B, "prompt_len": T,
+              "generated": new, "param_bytes": param_bytes,
+              **serve_bounds(model, B, T, new), "weights_cast": "once",
+              "bf16": bf16, "f32": f32, "ok": bf16["ok"] and f32["ok"]})
+        for r in (bf16, f32):
+            if not r["ok"]:
+                failures.append(
+                    f"serve {name} {r['dtype']}: decode off teacher forcing "
+                    f"{r['max_err_over_max_ref']:.3g} x max|ref| (tol "
+                    f"{r['tol']}), argmax_ok {r['argmax_ok']}, finite "
+                    f"{r['finite']}")
+    model = None
+    torch.cuda.empty_cache()
+    # the CLI, as a user runs it: the card, qwen2-7b's published config
+    out = cuda.BUILD_DIR / f"serve-{os.getpid()}-{time.time_ns()}.json"
+    toks = serve.main(["--arch", "qwen2-7b", "--seed", str(seed), "--json",
+                       str(out)])
+    rows = json.loads(out.read_text())["rows"]
+    emit({"phase": "serve_cli", "record": rows[0],
+          "device": str(toks.device)})
+    if toks.device.type != "cuda" or tuple(toks.shape) != (4, 16):
+        failures.append(f"serve CLI: tokens {tuple(toks.shape)} on "
+                        f"{toks.device}")
 
 
 def entry(name, source, replaces, count, rs):
@@ -1317,6 +1620,12 @@ def main() -> int:
               "bytes": nbytes, "gflop": b["flops"] / 1e9,
               "bound_ms": g_bound[0], "bound_by": g_bound[1],
               "ok": not held["mismatched"]})
+
+    # the serve phase needs the card's memory for qwen2-7b in f32 (30.5 GB)
+    del gemm_cases, gru_cases, wide, wide_model, blocks
+    torch.cuda.empty_cache()
+    with counted("serve", ()):
+        run_serve(dev, args.seed, failures)
 
     launches = {name: sum(p[name] for p in phase_launches.values())
                 for name in counters}

@@ -1,14 +1,15 @@
-"""Architecture registry: ``get_config(arch)`` and the reduced variants.
+"""Architecture registry: ``get_config(arch)`` + ``input_specs(cfg, shape)``.
 
 Each assigned architecture lives in its own module defining ``CONFIG`` (the
 exact published configuration) and ``smoke_config()`` (a reduced same-family
-variant for CPU smoke tests).  ``input_specs`` (the model inputs of a shape
-cell) comes with the model zoo."""
+variant for CPU smoke tests)."""
 from __future__ import annotations
 
 import importlib
 
-from ..models.config import ModelConfig
+import torch
+
+from ..models.config import SHAPES, ModelConfig, ShapeConfig, shape_applicable
 
 ARCHS = [
     "xlstm-1.3b",
@@ -45,3 +46,35 @@ def get_trace_config(arch: str) -> ModelConfig:
     return get_config(arch).scaled(
         n_layers=1, d_model=32, n_heads=2, n_kv_heads=2, head_dim=16,
         d_ff=64, vocab_size=64, n_experts=0, remat=False)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                for_train: bool | None = None) -> dict:
+    """Stand-ins for every model input of this cell: tensors on the ``meta``
+    device, with the shapes and dtypes of the real inputs and no
+    allocation."""
+    B, T = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    f = cfg.activation_dtype
+
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        return {"tokens": spec((B,), i32)}
+    specs = {"tokens": spec((B, T), i32)}
+    if cfg.family == "vlm":
+        n_patches = cfg.frontend_tokens or 576
+        specs["patch_embeds"] = spec((B, n_patches, cfg.d_model), f)
+    if cfg.family == "audio":
+        n_frames = cfg.frontend_tokens or 1500
+        specs["audio_embeds"] = spec((B, n_frames, cfg.d_model), f)
+    return specs
+
+
+def cell_applicable(arch: str, shape_name: str) -> bool:
+    return shape_applicable(arch, shape_name)
+
+
+def all_cells() -> list[tuple[str, str]]:
+    return [(a, s) for a in ARCHS for s in SHAPES]

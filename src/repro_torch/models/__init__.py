@@ -1,11 +1,15 @@
-"""Model configurations and the torch reference of the traced decoder block.
+"""The model zoo's attention families, their configurations, and the torch
+reference of the traced decoder block.
 
-The model zoo itself (the families behind ``configs/``) is not ported yet;
-``config`` holds the configurations the graph tier traces, and
-``traceable`` the float64 reference its compiled graphs are held to.
+``build_model`` gives the dense, MoE and VLM decoder LMs
+(``transformer.DecoderLM``) and whisper (``whisper.WhisperModel``);
+``convert.from_jax_params`` carries the JAX package's parameters across.
+The recurrent families (xlstm, jamba) are not ported yet.  ``traceable``
+holds the float64 reference the graph tier's compiled blocks are held to.
 """
+from .api import build_model
 from .config import (FULL_ATTENTION_ARCHS, SHAPES, ModelConfig, ShapeConfig,
                      shape_applicable)
 
-__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "FULL_ATTENTION_ARCHS",
-           "shape_applicable"]
+__all__ = ["build_model", "ModelConfig", "ShapeConfig", "SHAPES",
+           "FULL_ATTENTION_ARCHS", "shape_applicable"]

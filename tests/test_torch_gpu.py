@@ -649,3 +649,39 @@ def test_interpret_program_bit_identical_across_runs(cuda_device):
         for name, v in one.items():
             np.testing.assert_allclose(as_f32(v), as_f32(cpu[name]),
                                        rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-7b", "whisper-medium"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_served_model_on_card_matches_the_cpu(cuda_device, arch, dtype):
+    """A smoke-config model served on the card (``build_model``, its
+    ``init`` on the card, ``launch.serve.generate``) against the same
+    weights on the CPU: every step's logits within 1e-4 * max|cpu| in f32
+    (cuBLAS sums in another order) and 2e-2 in bf16; greedy tokens equal in
+    f32; and teacher forcing on the card within the smoke's SERVE_TOL."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import generate, make_batch
+    from repro_torch.models import build_model
+    cfg = get_smoke_config(arch).scaled(dtype=dtype)
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    card = build_model(cfg).init(gen)
+    assert card.device.type == "cuda"
+    cpu = build_model(cfg, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    batch = make_batch(cfg, 3, 7, cuda_device, gen)
+    rec_card, rec_cpu = {}, {}
+    toks = generate(card, batch, 6, record=rec_card)
+    cpu_toks = generate(cpu, {k: v.cpu() for k, v in batch.items()}, 6,
+                        record=rec_cpu)
+    assert toks.device.type == "cuda" and rec_card["prefill_ms"] > 0
+    got, want = rec_card["logits"].float().cpu(), rec_cpu["logits"].float()
+    rel = 1e-4 if dtype == "float32" else 2e-2
+    assert float((got - want).abs().max()) <= rel * float(want.abs().max())
+    if dtype == "float32":
+        assert torch.equal(toks.cpu(), cpu_toks)
+    with torch.no_grad():
+        full = dict(batch, tokens=torch.cat([batch["tokens"], toks], 1))
+        ref = card.logits(full)[:, 6:].float().cpu()
+    tol = 1e-3 if dtype == "float32" else 5e-2
+    assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())

@@ -44,7 +44,11 @@ def test_importing_the_port_loads_no_jax():
                  "fabric.partition", "fabric.simulate", "graph.ir",
                  "graph.trace", "graph.fuse", "graph.compile", "graph.execute",
                  "models.config", "models.traceable", "configs.registry",
-                 "configs.whisper_medium"):
+                 "configs.whisper_medium", "dist", "dist.ctx",
+                 "models.layers", "models.attention", "models.moe",
+                 "models.transformer", "models.whisper", "models.api",
+                 "models.convert", "launch", "launch.steps",
+                 "launch.caches", "launch.serve"):
         assert f"repro_torch.{name}" in res["modules"]
 
 
