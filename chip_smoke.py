@@ -82,14 +82,20 @@ launch the hand-written CUDA kernels with the plan.
      (``cfg.scaled(dtype="float32")``).  The runs: qwen2-7b at its full
      config, 4 x 16 tokens -> 16 and 4 x 4096 -> 16 (the query-chunked
      prefill: 2 chunks of 2048); mixtral-8x7b at full width, 2 of its 32
-     layers; whisper-medium at its full config.  One ``serve`` line per
+     layers; whisper-medium at its full config; xlstm-1.3b at its published
+     config in f32 only, 4 x 16 -> 16 (a recurrent prefill and a 2.8 GB f32
+     state, no KV cache), and at full width cut to 4 layers at 3:1 in
+     both dtypes; jamba-1.5-large at full width, 2 of its 72 layers (one
+     Mamba layer with its dense FFN, one attention layer with its
+     16-expert MoE), 4 x 16 -> 16.  One ``serve`` line per
      run: event-timed prefill and decode per token (``generate``'s
      ``record``), the cast of the weights (once per ``generate``), tokens a
      second over ``generate``'s wall time, ``max_memory_allocated``, the
      parameters' bytes, the bounds, and the gates; in bf16 also a profiler
      trace of 4 decode steps (device time against event time).  Then the
-     CLI once, ``python -m repro_torch.launch.serve --arch qwen2-7b`` run in
-     process on the card (``serve_cli`` line).
+     CLI, ``python -m repro_torch.launch.serve --arch qwen2-7b`` and
+     ``--arch xlstm-1.3b``, run in process on the card (``serve_cli``
+     lines).
 
    K1 and K2 run on the main loop their dtype and K take (``wgmma``: bf16
    after one transposing pass of B; ``simt``: f32), with split-K where the
@@ -177,7 +183,9 @@ paths in some layer (a near tie of router probabilities that rounding
 breaks the other way) is counted (``rerouted_positions``) and held to
 neither of the first two gates, and at least half the positions must be
 held: the first card run found one such position, at 7.9% of
-max|teacher|, where every other position was within 1.6%.
+max|teacher|, where every other position was within 1.6%.  xLSTM's bf16
+decode is gated at 4 of its 48 layers: with random weights it leaves the
+chunkwise teacher by 4.4e-2 at 8 layers in the JAX package too.
 Bounds: the larger of bytes (each input read once, each output written
 once) over 3.35 TB/s and operations (2mnk for a GEMM) over 67 TFLOP/s (f32,
 CUDA cores) or 989 TFLOP/s (bf16) — NVIDIA H100 SXM data-sheet peaks at
@@ -186,11 +194,14 @@ activation's torch op: two launches where there is an activation.  In the
 ``kernels`` line each time sums that kernel's calls over the main path's
 shapes, one call per shape (for K3, one step; K1 at the tuned tile; K3
 and K4 in f32 and bf16 at the DeepBench sizes), and ``launches`` sums the
-six phases.  A serve run's bounds (``serve_bounds``): the prefill's
-operations (2 x the parameters outside the embedding table x the tokens,
-plus the full square of attention scores the model computes) over the bf16
-peak, and a decode step's bytes (every weight it reads in bf16, the KV
-cache, B rows of the table) over 3.35 TB/s.
+six phases.  A serve run's bounds (``serve_bounds``): for the prefill and
+for one decode step, the larger of the bytes the function must move (the
+weights it needs once in the activation dtype, top_k experts a token, the
+KV cache, the recurrent state) over 3.35 TB/s and its operations (2 x the
+parameters a token meets outside the embedding table x the tokens, plus
+the full square of attention scores the model computes) over the peak;
+beside them the bounds of the work as run (every expert, xLSTM's prefill
+as T decode steps).
 """
 from __future__ import annotations
 
@@ -265,18 +276,36 @@ U_BUFFERS = ("Ur", "Uz", "Un")
 #: of f32 parameters are 187 GB) and takes capacity_factor = E / top_k = 4,
 #: with which no token can be dropped: at the config's 1.25 a 4-token decode
 #: step has a capacity of 1 a expert and drops tokens that the prefill of
-#: the same sequence keeps, so decode could not match teacher forcing
+#: the same sequence keeps, so decode could not match teacher forcing.
+#: Jamba keeps 2 of its 72 layers with attn_period 2 (one macro-block of
+#: 8 layers is 45.1 G parameters, 180 GB in f32; the cut is 11.9 G, 47.6 GB,
+#: and its bf16 cast 23.8 GB more) and takes capacity_factor 16 / 2 = 8.
+#: xlstm-1.3b serves at its published config in f32 (SERVE_F32_ONLY) and in
+#: both dtypes at full width cut to 4 layers at 3:1 (one macro-block of
+#: three mLSTM blocks and an sLSTM block): with random weights its bf16
+#: recurrent decode leaves the chunkwise teacher by 4.4e-2 of max |teacher|
+#: at 8 layers in the JAX package itself (tests/test_torch_xlstm.py), and
+#: further at more depth, so 5e-2 can judge the bf16 path only cut
 SERVE_RUNS = [
     ("qwen2-7b/short", "qwen2-7b", {}, 4, 16, 16),
     ("qwen2-7b/long", "qwen2-7b", {}, 4, 4096, 16),
     ("mixtral-8x7b/L2", "mixtral-8x7b", {"n_layers": 2,
                                          "capacity_factor": 4.0}, 4, 16, 16),
     ("whisper-medium", "whisper-medium", {}, 4, 16, 16),
+    ("xlstm-1.3b", "xlstm-1.3b", {}, 4, 16, 16),
+    ("xlstm-1.3b/L4", "xlstm-1.3b", {"n_layers": 4, "slstm_period": 4},
+     4, 16, 16),
+    ("jamba-1.5-large/L2", "jamba-1.5-large-398b",
+     {"n_layers": 2, "attn_period": 2, "capacity_factor": 8.0}, 4, 16, 16),
 ]
+#: the CLI's runs at the published configs (jamba's is 1.59 TB in f32)
+SERVE_CLI_ARCHS = ("qwen2-7b", "xlstm-1.3b")
 #: decode against teacher forcing: max |decode - teacher| over every step's
 #: logits, as a share of max |teacher|; f32 is tests/test_models.py's
 #: tolerance for the attention archs
 SERVE_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
+#: the runs served under the f32 activation config only
+SERVE_F32_ONLY = ("xlstm-1.3b",)
 
 
 def nvidia_smi(query: str) -> str:
@@ -458,37 +487,97 @@ def node_ms(cg, env: dict, dev, reps: int = 3) -> dict:
     return out
 
 
+def moe_ffns(model) -> list:
+    """The model's MoE FFNs, in the order a forward pass calls them."""
+    from repro_torch.models.moe import MoE
+    return [m for m in model.modules() if isinstance(m, MoE)]
+
+
 def serve_bounds(model, B: int, T: int, new: int) -> dict:
-    """Least times of the serve run on the data-sheet peaks (in the
-    activation dtype): the prefill's operations (2 x the parameters a token
-    meets, outside the embedding table, x B*T tokens, plus the attention's
-    full square of scores, as the model computes it) and one decode step's
-    bytes (every weight the step reads, cast once to the activation dtype;
-    the cache; B rows of the table) at pos T + new / 2."""
+    """Least times of the serve run on the data-sheet peaks, in the
+    activation dtype, each the larger of its bytes over HBM_BW and its
+    operations over the peak.  The prefill reads each weight it needs once
+    (the experts that B*T tokens can reach), writes the KV cache and the
+    recurrent state once, and does 2 x the parameters a token meets
+    (outside the embedding table; top_k of the experts) x B*T operations,
+    plus the full square of scores in each attention layer, as the model
+    computes it.  One decode step at pos T + new / 2 reads the weights it
+    needs (min(E, B*top_k) experts), the KV cache of the attention layers
+    and B rows of the table, and reads and writes the recurrent state.  The
+    ``*_as_run`` bounds count what the implementation does instead: the
+    dispatch einsum runs every expert on every token, and xLSTM's prefill
+    is T decode steps (``prefill`` runs ``decode_step`` over the prompt)."""
+    from repro_torch.models import build_model
     cfg, dt = model.cfg, model.dtype
     size = torch.tensor([], dtype=dt).element_size()
     per_token = sum(p.numel() for n, p in model.named_parameters()
                     if n != "embed")
     if cfg.family == "audio":                   # the decoder's weights
         per_token -= sum(p.numel() for p in model.enc.parameters())
-    H, hd, L = cfg.n_heads, cfg.hd, cfg.n_layers
+    experts = sum(w.numel() for f in moe_ffns(model)
+                  for w in (f.w_gate, f.w_up, f.w_down))
+    E, k = cfg.n_experts or 1, cfg.top_k or 1
+
+    def needs(tokens):
+        """The weights ``tokens`` tokens need: top_k experts a token."""
+        return per_token - experts + experts * min(E, tokens * k) // E
+
+    H, hd = cfg.n_heads, cfg.hd
+    # the attention layers, each with a KV cache
+    L = {"ssm": 0, "hybrid": getattr(model, "nb", 0)}.get(cfg.family,
+                                                          cfg.n_layers)
+
+    def kv(S):
+        out = 2 * L * B * S * cfg.n_kv_heads * hd * size
+        if cfg.family == "audio":
+            out += 2 * L * B * cfg.frontend_tokens * cfg.n_kv_heads * hd \
+                * size
+        return out
+
     S = T + new // 2
-    cache = 2 * L * B * S * cfg.n_kv_heads * hd * size
-    if cfg.family == "audio":
-        cache += 2 * L * B * cfg.frontend_tokens * cfg.n_kv_heads * hd * size
-    ops = 2.0 * per_token * B * T + L * 4.0 * B * H * T * T * hd
+    # the recurrent state (xLSTM's, Jamba's Mamba layers'), from the
+    # cache's layout on the meta device
+    meta = build_model(cfg, device="meta").init_cache(B, S)
+    state = sum(t.numel() * t.element_size()
+                for key, sub in meta.items() if key not in ("kv", "cross")
+                for t in sub.values())
+    active = per_token - experts + experts * k / E
+    attn = L * 4.0 * B * H * T * T * hd
+    ops = 2.0 * active * B * T + attn
+    ops_as_run = 2.0 * per_token * B * T + attn
+    read = 0
     if cfg.family == "audio":                   # the encoder's 1500 frames
         Ta = cfg.frontend_tokens
         enc = sum(p.numel() for p in model.enc.parameters())
-        ops += 2.0 * enc * B * Ta + cfg.encoder_layers * 4.0 * B * H * Ta \
+        read = enc * size
+        extra = 2.0 * enc * B * Ta + cfg.encoder_layers * 4.0 * B * H * Ta \
             * Ta * hd + L * 4.0 * B * H * T * Ta * hd
-    step_bytes = per_token * size + cache + B * cfg.d_model * size
-    return {"prefill_bound_ms": ops / PEAK[dt] * 1e3,
-            "prefill_bound_by": "operations",
-            "decode_bound_ms": max(step_bytes / HBM_BW,
-                                   2.0 * per_token * B / PEAK[dt]) * 1e3,
-            "decode_bound_by": "bytes", "decode_step_bytes": step_bytes,
-            "prefill_flop": ops}
+        ops, ops_as_run = ops + extra, ops_as_run + extra
+    prefill_bytes = (needs(B * T) * size + read + kv(T) + state
+                     + B * T * cfg.d_model * size)
+
+    def least(nbytes, nops):
+        return max((nbytes / HBM_BW * 1e3, "bytes"),
+                   (nops / PEAK[dt] * 1e3, "operations"))
+
+    rows = B * cfg.d_model * size
+    step_bytes = needs(B) * size + kv(S) + 2 * state + rows
+    as_run_bytes = per_token * size + kv(S) + 2 * state + rows
+    decode = least(step_bytes, 2.0 * active * B)
+    decode_as_run = least(as_run_bytes, 2.0 * per_token * B)
+    prefill = least(prefill_bytes, ops)
+    prefill_as_run = (T * decode_as_run[0], "bytes") \
+        if cfg.family == "ssm" else least(prefill_bytes, ops_as_run)
+    return {"prefill_bound_ms": prefill[0], "prefill_bound_by": prefill[1],
+            "decode_bound_ms": decode[0], "decode_bound_by": decode[1],
+            "prefill_bound_as_run_ms": prefill_as_run[0],
+            "prefill_bound_as_run_by": prefill_as_run[1],
+            "decode_bound_as_run_ms": decode_as_run[0],
+            "decode_bound_as_run_by": decode_as_run[1],
+            "decode_step_bytes": step_bytes,
+            "decode_step_bytes_as_run": as_run_bytes,
+            "recurrent_state_bytes": state, "prefill_bytes": prefill_bytes,
+            "prefill_flop": ops, "prefill_flop_as_run": ops_as_run}
 
 
 def serve_batch(cfg, B: int, T: int, dev, gen) -> dict:
@@ -508,8 +597,8 @@ def perturb_experts(model, gen) -> None:
     """Make each MoE expert its own: the init repeats one draw in every
     expert, and with identical experts routing changes nothing."""
     with torch.no_grad():
-        for layer in model.layers:
-            for w in (layer.ffn.w_gate, layer.ffn.w_up, layer.ffn.w_down):
+        for ffn in moe_ffns(model):
+            for w in (ffn.w_gate, ffn.w_up, ffn.w_down):
                 for e in range(w.shape[0]):
                     w[e].mul_(1 + 0.3 * torch.randn(
                         w.shape[1:], generator=gen, device=w.device))
@@ -536,9 +625,9 @@ def record_routing(routes: list):
 
 def rerouted(routes: list, L: int, B: int, T: int, new: int
              ) -> torch.Tensor:
-    """(B, T + new) bool: where a token's experts in some layer differ
-    between ``generate`` (prefill, then one call a layer and step) and
-    teacher forcing (the last L calls)."""
+    """(B, T + new) bool: where a token's experts in some MoE FFN differ
+    between ``generate`` (prefill, then one call an FFN and step) and
+    teacher forcing (the last L calls); L is the model's MoE FFNs."""
     gen, tf = routes[:-L], routes[-L:]
     K = tf[0].shape[-1]
     out = torch.zeros(B, T + new, dtype=torch.bool, device=tf[0].device)
@@ -585,7 +674,7 @@ def serve_gates(model, batch, new: int) -> dict:
     held = torch.ones(B, new + 1, dtype=torch.bool, device=dev)
     moved = 0
     if cfg.n_experts:
-        moved_at = rerouted(routes, cfg.n_layers, B, T, new)
+        moved_at = rerouted(routes, len(moe_ffns(model)), B, T, new)
         moved = int(moved_at.sum())
         if model.dtype != torch.float32:
             held = ~moved_at[:, T - 1:]
@@ -646,8 +735,9 @@ def decode_profile(model, batch, steps: int = 4) -> dict:
 
 def run_serve(dev, seed: int, failures: list) -> None:
     """The serve phase: each of SERVE_RUNS through ``build_model`` and
-    ``launch.serve.generate`` in bf16, then the same weights under the f32
-    activation config; the CLI once at qwen2-7b's full config."""
+    ``launch.serve.generate`` in bf16 (but those of SERVE_F32_ONLY), then
+    the same weights under the f32 activation config; the CLI at each of
+    SERVE_CLI_ARCHS' full config."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import cuda
     from repro_torch.launch import serve
@@ -671,37 +761,44 @@ def run_serve(dev, seed: int, failures: list) -> None:
                 perturb_experts(model, gen)
         batch = serve_batch(cfg, B, T, dev, torch.Generator(dev).manual_seed(
             seed + 1))
-        bf16 = serve_gates(model, batch, new)
-        bf16.update(decode_profile(model, batch))
-        f32 = serve_gates(twin(model, cfg.scaled(dtype="float32")), batch,
-                          new)
+        bf16 = None
+        if name not in SERVE_F32_ONLY:
+            bf16 = serve_gates(model, batch, new)
+            bf16.update(decode_profile(model, batch))
+        f32_model = twin(model, cfg.scaled(dtype="float32"))
+        f32 = serve_gates(f32_model, batch, new)
         param_bytes = sum(p.numel() * p.element_size()
                           for p in model.parameters())
+        served = [r for r in (bf16, f32) if r is not None]
         emit({"phase": "serve", "run": name, "arch": arch,
               "n_layers": cfg.n_layers, "d_model": cfg.d_model,
               "n_experts": cfg.n_experts, "batch": B, "prompt_len": T,
               "generated": new, "param_bytes": param_bytes,
-              **serve_bounds(model, B, T, new), "weights_cast": "once",
-              "bf16": bf16, "f32": f32, "ok": bf16["ok"] and f32["ok"]})
-        for r in (bf16, f32):
+              **serve_bounds(f32_model if bf16 is None else model, B, T,
+                             new), "weights_cast": "once",
+              "bf16": bf16, "f32": f32, "ok": all(r["ok"] for r in served)})
+        for r in served:
             if not r["ok"]:
                 failures.append(
                     f"serve {name} {r['dtype']}: decode off teacher forcing "
                     f"{r['max_err_over_max_ref']:.3g} x max|ref| (tol "
                     f"{r['tol']}), argmax_ok {r['argmax_ok']}, finite "
                     f"{r['finite']}")
+        f32_model = None        # holds the parameters too
     model = None
     torch.cuda.empty_cache()
-    # the CLI, as a user runs it: the card, qwen2-7b's published config
-    out = cuda.BUILD_DIR / f"serve-{os.getpid()}-{time.time_ns()}.json"
-    toks = serve.main(["--arch", "qwen2-7b", "--seed", str(seed), "--json",
-                       str(out)])
-    rows = json.loads(out.read_text())["rows"]
-    emit({"phase": "serve_cli", "record": rows[0],
-          "device": str(toks.device)})
-    if toks.device.type != "cuda" or tuple(toks.shape) != (4, 16):
-        failures.append(f"serve CLI: tokens {tuple(toks.shape)} on "
-                        f"{toks.device}")
+    # the CLI, as a user runs it: the card, the published configs
+    for arch in SERVE_CLI_ARCHS:
+        out = cuda.BUILD_DIR / f"serve-{os.getpid()}-{time.time_ns()}.json"
+        toks = serve.main(["--arch", arch, "--seed", str(seed), "--json",
+                           str(out)])
+        rows = json.loads(out.read_text())["rows"]
+        emit({"phase": "serve_cli", "record": rows[0],
+              "device": str(toks.device)})
+        if toks.device.type != "cuda" or tuple(toks.shape) != (4, 16):
+            failures.append(f"serve CLI {arch}: tokens {tuple(toks.shape)} "
+                            f"on {toks.device}")
+        torch.cuda.empty_cache()
 
 
 def entry(name, source, replaces, count, rs):

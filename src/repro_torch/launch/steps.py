@@ -2,8 +2,8 @@
 the dry run).  The parameters live on the model that each builder returns,
 so a step takes the batch (and the cache), not a parameter tree.
 
-``make_train_step`` comes with the port of ``optim`` (ROADMAP Queue 1
-item 6).
+``make_train_step`` comes with the port of the training driver (ROADMAP
+Queue 1 item 3).
 """
 from __future__ import annotations
 

@@ -14,11 +14,10 @@ The parameters live on the model, on its device; the JAX package's
 from __future__ import annotations
 
 from .config import ModelConfig
+from .hybrid import HybridLM
 from .transformer import DecoderLM
 from .whisper import WhisperModel
-
-#: families whose models are not ported yet (xlstm, jamba)
-UNPORTED_FAMILIES = ("ssm", "hybrid")
+from .xlstm_lm import XLSTMLM
 
 
 def build_model(cfg: ModelConfig, device=None):
@@ -27,8 +26,8 @@ def build_model(cfg: ModelConfig, device=None):
     ``init``.  ``device="meta"`` allocates nothing."""
     if cfg.family == "audio":
         return WhisperModel(cfg, device)
-    if cfg.family in UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family (xlstm, jamba) is not "
-            "ported yet (ROADMAP Queue 1 item 6)")
+    if cfg.family == "ssm":
+        return XLSTMLM(cfg, device)
+    if cfg.family == "hybrid":
+        return HybridLM(cfg, device)
     return DecoderLM(cfg, device)   # dense | moe | vlm

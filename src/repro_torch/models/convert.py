@@ -1,9 +1,12 @@
 """Carry the JAX package's parameters into the port's models.
 
-The JAX ``init`` gives a pytree whose layer stacks (``layers``, whisper's
-``enc`` and ``dec``) are stacked on axis 0; the port keeps one module per
-layer.  ``from_jax_params`` unstacks them and loads every leaf, unchanged,
-into the parameter of the same name.
+The JAX ``init`` gives a pytree whose layer stacks are stacked on leading
+axes: ``layers``, whisper's ``enc`` and ``dec``, xLSTM's ``blocks/slstm``
+and Jamba's ``blocks/attn`` on one (a layer or macro-block each), xLSTM's
+``blocks/mlstm`` and Jamba's ``blocks/dense`` and ``blocks/moe`` on two
+(macro-block, then sublayer).  The port keeps one module per layer, so
+``from_jax_params`` unstacks them and loads every leaf, unchanged, into the
+parameter of the same name.
 """
 from __future__ import annotations
 
@@ -13,8 +16,11 @@ import torch
 from .api import build_model
 from .config import ModelConfig
 
-#: subtrees of the JAX parameter tree stacked on axis 0, one entry a layer
-STACKED = ("layers", "enc", "dec")
+#: subtrees of the JAX parameter tree stacked on leading axes, by path,
+#: and the number of those axes
+STACKED = {"layers": 1, "enc": 1, "dec": 1, "blocks/slstm": 1,
+           "blocks/attn": 1, "blocks/mlstm": 2, "blocks/dense": 2,
+           "blocks/moe": 2}
 
 
 def _tensor(a) -> torch.Tensor:
@@ -24,28 +30,35 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def _flatten(tree: dict, prefix: str, out: dict, index=None) -> None:
+def _flatten(tree: dict, path: str, out: dict) -> None:
+    """The leaves under ``tree`` (at ``path``, "/"-separated) into ``out``
+    under their dotted names; a stacked subtree as one entry a layer."""
     for name, node in tree.items():
-        if isinstance(node, dict):
-            _flatten(node, f"{prefix}{name}.", out, index)
+        sub = f"{path}/{name}" if path else name
+        axes = STACKED.get(sub)
+        if axes:
+            lead = np.shape(next(_leaves(node)))[:axes]
+            for idx in np.ndindex(*lead):
+                _flatten(_index(node, idx),
+                         "/".join([sub, *map(str, idx)]), out)
+        elif isinstance(node, dict):
+            _flatten(node, sub, out)
         else:
-            out[prefix + name] = node if index is None else np.asarray(
-                node)[index]
+            out[sub.replace("/", ".")] = node
+
+
+def _index(tree: dict, idx: tuple) -> dict:
+    return {k: _index(v, idx) if isinstance(v, dict) else np.asarray(v)[idx]
+            for k, v in tree.items()}
 
 
 def state_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     """The JAX tree (numpy leaves) as the port's ``state_dict`` names:
-    ``layers.<i>.attn.wq`` for leaf i of ``layers/attn/wq``."""
+    ``layers.<i>.attn.wq`` for leaf i of ``layers/attn/wq``,
+    ``blocks.mlstm.<b>.<j>.p.wq`` for leaf (b, j) of
+    ``blocks/mlstm/p/wq``."""
     flat: dict = {}
-    for name, node in tree.items():
-        if name in STACKED:
-            n = len(next(iter(_leaves(node))))
-            for i in range(n):
-                _flatten(node, f"{name}.{i}.", flat, index=i)
-        elif isinstance(node, dict):
-            _flatten(node, f"{name}.", flat)
-        else:
-            flat[name] = node
+    _flatten(tree, "", flat)
     return {k: _tensor(v) for k, v in flat.items()}
 
 

@@ -103,6 +103,26 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
+def divisor_chunk(T: int, chunk: int) -> int:
+    """The largest chunk length <= ``chunk`` that divides T, as the JAX
+    package's scans pick it (1 at a prime T above ``chunk``)."""
+    c = min(chunk, T)
+    while T % c:
+        c -= 1
+    return c
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, which is ``logaddexp(x, 0)``:
+    max(x, 0) + log1p(exp(-|x|))."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: -softplus(-x)."""
+    return -softplus(-x)
+
+
 def cross_entropy_loss(logits: torch.Tensor,
                        labels: torch.Tensor) -> torch.Tensor:
     """Stable next-token cross entropy in f32; logits (B, T, V), labels

@@ -115,18 +115,28 @@ def layer_decode(p: dict, x: torch.Tensor, cache: dict, pos: int,
 
 
 class CastMixin:
-    """The layer cast, per call or once for a block (``cast_weights``)."""
+    """The layer cast, per call or once for a block (``cast_weights``).
+
+    ``STACKS`` names the layer stacks by their path from the model
+    (``layers``, or ``blocks.mlstm``): an ``nn.ModuleList`` of layers, or
+    of such lists (one a macro-block)."""
 
     _cast_once: dict | None = None
 
     def _cast(self, tree: dict) -> dict:
         return cast_tree(tree, self.pdtype, self.dtype)
 
-    def _stack(self, name: str) -> list[dict]:
-        """Each layer of the stack ``name``, cast to the activation dtype."""
+    def _cast_layers(self, module: nn.Module):
+        if isinstance(module, nn.ModuleList):
+            return [self._cast_layers(m) for m in module]
+        return self._cast(module.tree())
+
+    def _stack(self, name: str) -> list:
+        """Each layer of the stack ``name``, cast to the activation dtype,
+        nested as the stack is."""
         if self._cast_once is not None:
             return self._cast_once[name]
-        return [self._cast(layer.tree()) for layer in getattr(self, name)]
+        return self._cast_layers(self.get_submodule(name))
 
     def _weight(self, name: str) -> torch.Tensor:
         if self._cast_once is not None:
@@ -142,8 +152,7 @@ class CastMixin:
             yield self
             return
         with torch.no_grad():
-            once = {name: [self._cast(layer.tree())
-                           for layer in getattr(self, name)]
+            once = {name: self._cast_layers(self.get_submodule(name))
                     for name in self.STACKS}
             once.update((name, getattr(self, name).to(self.dtype))
                         for name in self.HEADS)

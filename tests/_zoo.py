@@ -4,9 +4,11 @@ weights carried into the port, seeded inputs for both, and the tolerances.
 
 Weights: the JAX ``init(PRNGKey(0))`` of the smoke config, with the leaves
 that init leaves degenerate perturbed by seeded numpy before either package
-sees them — the QKV biases (zeros), the norm scales (ones) and each MoE
-expert (one draw repeated E times) — so that a swapped bias, a dropped
-norm scale or a wrong expert index shows in the outputs.
+sees them — the QKV biases (zeros), the norm scales (ones), each MoE
+expert (one draw repeated E times), the xLSTM gate biases (zeros and
+threes), Mamba's conv bias, dt bias, skip and the rows of A_log (log 1..ds
+in every row) — so that a swapped bias, a dropped norm scale, a wrong
+expert index or a transposed A shows in the outputs.
 
 The JAX side runs compiled, with XLA's excess precision off
 (``jit_ref``).  On the CPU, XLA otherwise keeps f32 values inside fused
@@ -30,14 +32,17 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from repro.configs import get_config as jax_get_config
 from repro.configs import get_smoke_config as jax_smoke_config
+from repro.launch.steps import eval_shape_cache as jax_eval_shape_cache
+from repro.launch.steps import eval_shape_params as jax_eval_shape_params
 from repro.models import build_model as jax_build_model
-from repro_torch.configs import ARCHS, get_smoke_config
-from repro_torch.models.convert import from_jax_params
+from repro_torch.configs import ARCHS, get_config, get_smoke_config
+from repro_torch.launch.steps import eval_shape_cache, eval_shape_params
+from repro_torch.models.convert import STACKED, from_jax_params
 
-#: the attention families the port serves (xlstm and jamba are not ported)
-ZOO_ARCHS = [a for a in ARCHS if a not in ("xlstm-1.3b",
-                                           "jamba-1.5-large-398b")]
+#: every arch of the registry
+ZOO_ARCHS = list(ARCHS)
 DECODER_ARCHS = [a for a in ZOO_ARCHS if a != "whisper-medium"]
 DTYPES = ("float32", "bfloat16")
 BF16_REL = 1e-2
@@ -49,6 +54,11 @@ def jit_ref(fn, **kw):
     return jax.jit(fn, compiler_options=REF_OPTIONS, **kw)
 
 
+#: leaves the init fills with one value (or one row) that get noise
+SHIFTED = ("bq", "bk", "bv", "b_i", "b_f", "b_z", "b_o", "dt_bias", "D_skip",
+           "conv_b", "A_log")
+
+
 def perturb(tree: dict, rng: np.random.Generator) -> dict:
     """Perturb the degenerate leaves of a numpy parameter tree."""
     out = {}
@@ -57,9 +67,9 @@ def perturb(tree: dict, rng: np.random.Generator) -> dict:
             out[name] = perturb(node, rng)
             continue
         a = np.asarray(node)
-        if name.startswith("norm") or name in ("bq", "bk", "bv"):
+        if name.startswith("norm") or name in SHIFTED:
             a = a + rng.normal(0.0, 0.1, a.shape).astype(a.dtype)
-        elif name in ("w_gate", "w_up", "w_down") and a.ndim == 4:
+        elif name in ("w_gate", "w_up", "w_down") and a.ndim >= 4:
             # stacked layers x experts: scale each expert differently
             a = a * (1.0 + rng.normal(0.0, 0.3, a.shape)).astype(a.dtype)
         out[name] = a
@@ -157,3 +167,50 @@ def tokens_agree(got, want, logits, dtype: str) -> None:
             if close[b, i]:
                 break
             assert got[b, i] == want[b, i], (b, i)
+
+
+def flat_specs(tree: dict, prefix: str = ""):
+    """(path, leaf) of a nested dict, the path "/"-separated."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from flat_specs(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+def jax_path(name: str) -> tuple[str, int]:
+    """A ``state_dict`` name's leaf path in the JAX tree, and the number of
+    stacked axes the JAX leaf has in front: ``blocks.mlstm.0.1.p.wq`` is
+    leaf (0, 1) of ``blocks/mlstm/p/wq``."""
+    parts, out, axes = name.split("."), [], 0
+    while parts:
+        out.append(parts.pop(0))
+        n = STACKED.get("/".join(out), 0)
+        if n:
+            del parts[:n]
+            axes = n
+    return "/".join(out), axes
+
+
+def assert_eval_shapes_match(arch: str) -> None:
+    """Parameter and cache shapes and dtypes on the ``meta`` device at the
+    full config of ``arch``, against the JAX package's ``eval_shape``."""
+    cfg = get_config(arch)
+    _, state = eval_shape_params(cfg)
+    assert all(t.device.type == "meta" for t in state.values())
+    _, jtree = jax_eval_shape_params(jax_get_config(arch))
+    leaves = dict(flat_specs(jtree))
+    assert {jax_path(n)[0] for n in state} == set(leaves)
+    for name, t in state.items():
+        path, axes = jax_path(name)
+        spec = leaves[path]
+        assert tuple(t.shape) == tuple(spec.shape[axes:]), name
+        assert str(t.dtype) == f"torch.{spec.dtype}", name
+    assert sum(t.numel() for t in state.values()) == sum(
+        int(np.prod(s.shape)) for s in leaves.values())
+    cache = eval_shape_cache(cfg, 2, 64)
+    jcache = jax_eval_shape_cache(jax_get_config(arch), 2, 64)
+    got = {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+           for k, v in flat_specs(cache)}
+    assert got == {k: (tuple(v.shape), str(v.dtype))
+                   for k, v in flat_specs(jcache)}

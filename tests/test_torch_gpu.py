@@ -652,7 +652,8 @@ def test_interpret_program_bit_identical_across_runs(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["qwen2-7b", "whisper-medium"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "whisper-medium", "xlstm-1.3b",
+                                  "jamba-1.5-large-398b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_served_model_on_card_matches_the_cpu(cuda_device, arch, dtype):
     """A smoke-config model served on the card (``build_model``, its

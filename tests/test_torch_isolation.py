@@ -46,7 +46,9 @@ def test_importing_the_port_loads_no_jax():
                  "models.config", "models.traceable", "configs.registry",
                  "configs.whisper_medium", "dist", "dist.ctx",
                  "models.layers", "models.attention", "models.moe",
-                 "models.transformer", "models.whisper", "models.api",
+                 "models.transformer", "models.whisper", "models.xlstm",
+                 "models.xlstm_lm", "models.mamba", "models.hybrid",
+                 "models.api",
                  "models.convert", "launch", "launch.steps",
                  "launch.caches", "launch.serve"):
         assert f"repro_torch.{name}" in res["modules"]

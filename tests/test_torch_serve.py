@@ -30,11 +30,14 @@ def test_greedy_generate_matches_jax_package(arch, dtype):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "mixtral-8x7b",
-                                  "llava-next-34b"])
+                                  "llava-next-34b", "xlstm-1.3b",
+                                  "jamba-1.5-large-398b"])
 def test_generate_logits_match_teacher_forcing(arch):
     """Decode against teacher forcing in f32, the card smoke's first gate,
-    within 1e-3 * max|ref| (``tests/test_models.py``'s tolerance);
-    Mixtral's 12-token prompt and 6 new tokens cross its window of 8."""
+    within 1e-3 * max|ref| (``tests/test_models.py``'s tolerance for the
+    attention archs); Mixtral's 12-token prompt and 6 new tokens cross its
+    window of 8; xLSTM's and Jamba's recurrent decode against their
+    chunkwise ``logits``."""
     _, _, tm = pair(arch, "float32")
     T, new = (12, 6) if arch == "mixtral-8x7b" else (6, 5)
     _, tb = batches(tm.cfg, T=T)
@@ -80,7 +83,8 @@ def test_cli_prints_the_jax_packages_record_keys(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("arch", ["whisper-medium", "llava-next-34b",
-                                  "phi3.5-moe-42b-a6.6b"])
+                                  "phi3.5-moe-42b-a6.6b", "xlstm-1.3b",
+                                  "jamba-1.5-large-398b"])
 def test_cli_serves_every_family_on_the_cpu(arch, capsys):
     toks = serve.main(["--arch", arch, "--smoke", "--batch", "2",
                        "--prompt-len", "5", "--gen", "3", "--device", "cpu",
