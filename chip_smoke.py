@@ -29,7 +29,7 @@ launch the hand-written CUDA kernels with the plan.
    the same pipeline and cache, and again from the file with the memo
    cleared (``conv_compile`` lines: calls, transform steps, lowering, the
    fused GEMM (m, n, k) of a one-call selection, seconds).
-4. Six phases of the main path, each with every launch counter set to 0
+4. Seven phases of the main path, each with every launch counter set to 0
    just before it and read just after (one ``launches`` line each):
 
    * ``plan`` — with an empty tuning cache as the default, so the tile is
@@ -95,7 +95,37 @@ launch the hand-written CUDA kernels with the plan.
      trace of 4 decode steps (device time against event time).  Then the
      CLI, ``python -m repro_torch.launch.serve --arch qwen2-7b`` and
      ``--arch xlstm-1.3b``, run in process on the card (``serve_cli``
-     lines).
+     lines);
+   * ``train`` — the training path, which runs no K1-K4 either (the JAX
+     package differentiates its plain models: no Pallas kernel, no custom
+     gradient), so its ``launches`` line is all zeros.  ``train_parity``:
+     olmo-1b at full width cut to 2 of its 16 layers, B = 2, T = 128, one
+     seeded init drawn on the CPU and copied to the card, two
+     ``make_train_step`` steps on each with TF32 off, in f32 and in bf16
+     activations (one line each: losses, grad norms, the largest parameter
+     difference after each step and the count of elements beyond 1e-6),
+     then one AdamW step on the card's parameters, moments and gradient
+     against the same step on the CPU from copies of them
+     (``adamw_parity``).
+     ``train``: olmo-1b at its published config (bf16 activations, f32
+     parameters and AdamW state, remat), B = 8, T = 2048, through
+     ``launch.train.build_trainer``'s step on ``SyntheticLM`` batches: 2
+     warm-up and 8 event-timed steps, 2 more under ``torch.profiler`` (the
+     device's busy share, the library GEMMs' device time, the top
+     kernels), then AdamW alone (``apply_updates``, event-timed); step time
+     median and spread, tokens a second, ``mfu`` (model FLOPs a step, 6 N
+     tokens + 12 L T d tokens, over 989 TFLOP/s), the bound as run (remat
+     repeats the forward: 4/3 of it), AdamW against its 28 bytes a
+     parameter, peak memory, every loss and grad norm; no checkpoint (one
+     is 20.5 GB).  ``train_families``: one f32 step of each arch's smoke
+     config on the card against the CPU, then ``adamw_parity``.
+     ``train_cli``: ``python -m repro_torch.launch.train --arch olmo-1b
+     --smoke --steps 12 --batch 4 --seq 64`` on the card, in PyTorch's default mode (in process) and
+     under ``torch.use_deterministic_algorithms`` (in a child process
+     whose ``CUBLAS_WORKSPACE_CONFIG`` is ``:4096:8``; this process keeps
+     cuBLAS's default, as the variable slows its calls): uninterrupted,
+     with ``--save-every 4 --inject-fault-at 6``, and again with
+     ``--resume``.
 
    K1 and K2 run on the main loop their dtype and K take (``wgmma``: bf16
    after one transposing pass of B; ``simt``: f32), with split-K where the
@@ -158,8 +188,18 @@ launch the hand-written CUDA kernels with the plan.
    trained, or an extracted GEMM hit the tuning cache, got no prediction
    or disagreed with its plain version, or a serve run failed a gate (decode
    against teacher forcing, greedy against the teacher's argmax, finite)
-   or the CLI returned no (4, 16) tokens on the card; when there is no card
-   it prints nothing and exits 1.
+   or the CLI returned no (4, 16) tokens on the card, or a train gate
+   failed (the card's f32 loss or grad norm off the CPU's by more than
+   rtol 1e-5, in ``train_parity`` and each ``train_families`` arch, or the
+   bf16 loss by more than 1e-2; the card's AdamW step off the CPU's by
+   more than ``ADAMW_TOL`` in any element; in f32 ``train_parity`` more
+   than ``PARAM_FLIP_SHARE`` of the parameters further apart than 1e-6; a
+   full-config loss or grad norm not finite or the last loss not below the
+   first; in either mode a CLI run that fails other than by the injected
+   fault, the fault run not failing with it, the resumed run not printing
+   "resumed from step 4" or its losses for steps 4-11 not equal to the
+   uninterrupted run's); when there is no card it prints nothing and
+   exits 1.
 
 Inputs: uniform(-1, 1) from ``np.random.default_rng(seed)``; the GRU
 weights are uniform(-1/sqrt(H), 1/sqrt(H)), PyTorch's own GRU init.
@@ -194,7 +234,7 @@ activation's torch op: two launches where there is an activation.  In the
 ``kernels`` line each time sums that kernel's calls over the main path's
 shapes, one call per shape (for K3, one step; K1 at the tuned tile; K3
 and K4 in f32 and bf16 at the DeepBench sizes), and ``launches`` sums the
-six phases.  A serve run's bounds (``serve_bounds``): for the prefill and
+seven phases.  A serve run's bounds (``serve_bounds``): for the prefill and
 for one decode step, the larger of the bytes the function must move (the
 weights it needs once in the activation dtype, top_k experts a token, the
 KV cache, the recurrent state) over 3.35 TB/s and its operations (2 x the
@@ -207,10 +247,12 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -306,6 +348,36 @@ SERVE_CLI_ARCHS = ("qwen2-7b", "xlstm-1.3b")
 SERVE_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
 #: the runs served under the f32 activation config only
 SERVE_F32_ONLY = ("xlstm-1.3b",)
+#: the trainer's arch: the JAX trainer's default, the one published config
+#: of the zoo whose f32 parameters, gradients and AdamW moments (20.5 GB)
+#: fit one card
+TRAIN_ARCH = "olmo-1b"
+#: train: the published config at its published context, B x T tokens a step
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_PROFILED = 2, 8, 2
+#: train_parity: full width cut to 2 of 16 layers, on the card and the CPU
+PARITY_CUT = {"n_layers": 2}
+PARITY_BATCH, PARITY_SEQ, PARITY_STEPS = 2, 128, 2
+#: the card against the CPU: loss and grad_norm, f32 (TF32 off); the loss in
+#: bf16, as a share of the CPU's
+TRAIN_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+#: parameters further apart than this after a parity step are counted
+PARAM_DIFF = 1e-6
+#: f32 train_parity: at most this share of the parameters beyond PARAM_DIFF.
+#: Adam's update is near sign(g) * lr, so an element whose gradient is 0 to
+#: within the two devices' rounding can move up to 2 lr apart; such
+#: elements are few, where a fault of the update moves every element
+PARAM_FLIP_SHARE = 1e-4
+#: adamw_parity: the card's AdamW step against the CPU's on the same
+#: parameters, moments and gradients, each element within
+#: rel * max|leaf| (+ lr_rel * lr for a parameter): the same elementwise
+#: f32 formula, apart by a few ulps and by the global norm's sum order
+ADAMW_TOL = {"params": (1e-6, 1e-5), "mu": (1e-5, 0.0), "nu": (1e-5, 0.0)}
+#: the library GEMM kernels of a profiler trace (cuBLAS, CUTLASS), by name
+GEMM_KERNEL = re.compile(r"gemm|xmma|cutlass|nvjet", re.IGNORECASE)
+#: the CLI's restart check: the smoke config, 12 steps, a fault at 6
+TRAIN_CLI = ["--arch", TRAIN_ARCH, "--smoke", "--steps", "12", "--batch",
+             "4", "--seq", "64"]
 
 
 def nvidia_smi(query: str) -> str:
@@ -799,6 +871,325 @@ def run_serve(dev, seed: int, failures: list) -> None:
             failures.append(f"serve CLI {arch}: tokens {tuple(toks.shape)} "
                             f"on {toks.device}")
         torch.cuda.empty_cache()
+
+
+def parity_steps(cfg, seed: int, dev, steps: int = PARITY_STEPS) -> dict:
+    """``steps`` train steps of ``cfg`` on the card and on the CPU from one
+    seeded init (drawn on the CPU, copied to the card) on the same
+    batches (the frontend stub's embeddings too): losses, grad norms, and
+    after each step the largest parameter difference and the count of
+    elements further apart than PARAM_DIFF."""
+    from repro_torch.data.pipeline import (DataConfig, add_frontend_stub,
+                                           make_source)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import AdamWConfig
+    opt_cfg = AdamWConfig(warmup_steps=1, total_steps=steps)
+    cpu, _, cpu_step = make_train_step(cfg, opt_cfg, device="cpu")
+    cpu.init(torch.Generator().manual_seed(seed))
+    card, card_opt, card_step = make_train_step(cfg, opt_cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    source = make_source(DataConfig(seed=seed, global_batch=PARITY_BATCH,
+                                    seq_len=PARITY_SEQ), cfg)
+    out = {"loss": [], "loss_cpu": [], "grad_norm": [], "grad_norm_cpu": [],
+           "param_max_diff": [], "params_beyond": []}
+    for s in range(steps):
+        batch = {k: torch.as_tensor(v) for k, v in
+                 add_frontend_stub(source.batch(s), cfg, s, seed).items()}
+        got = card_step({k: v.to(dev) for k, v in batch.items()})
+        want = cpu_step(batch)
+        for key in ("loss", "grad_norm"):
+            out[key].append(float(got[key]))
+            out[key + "_cpu"].append(float(want[key]))
+        worst, beyond = 0.0, 0
+        cpu_state = cpu.state_dict()
+        for name, p in card.state_dict().items():
+            diff = (p.cpu() - cpu_state[name]).abs()
+            worst = max(worst, float(diff.max()))
+            beyond += int((diff > PARAM_DIFF).sum())
+        out["param_max_diff"].append(worst)
+        out["params_beyond"].append(beyond)
+    out["param_count"] = sum(p.numel() for p in cpu.parameters())
+    out["adamw"] = adamw_parity(card, card_opt, {k: v.to(dev) for k, v in
+                                                 batch.items()}, opt_cfg)
+    return out
+
+
+def adamw_parity(model, opt_state, batch, opt_cfg) -> dict:
+    """One AdamW step (``apply_updates``) on the card's parameters and
+    moments from the card's gradient of the loss on ``batch``, against the
+    same step on the CPU from copies of those tensors: for the parameters
+    and each moment, the largest element difference as a share of its
+    ``ADAMW_TOL`` bound (gated at 1).  The train steps' own comparison
+    cannot hold the update elementwise, as the two devices' gradients
+    differ in rounding."""
+    from repro_torch.optim.adamw import OptState, apply_updates
+    params = dict(model.named_parameters())
+    grads = torch.autograd.grad(model.loss(batch), list(params.values()),
+                                allow_unused=True, materialize_grads=True)
+    grads = dict(zip(params, grads))
+
+    def host(tree):
+        return {n: t.detach().cpu().clone() for n, t in tree.items()}
+
+    cpu = {"params": host(params), "mu": host(opt_state.mu),
+           "nu": host(opt_state.nu)}
+    cpu_state = OptState(opt_state.step.cpu().clone(), cpu["mu"], cpu["nu"])
+    apply_updates(params, grads, opt_state, opt_cfg)
+    lr = float(apply_updates(cpu["params"], host(grads), cpu_state,
+                             opt_cfg)[2]["lr"])
+    card = {"params": params, "mu": opt_state.mu, "nu": opt_state.nu}
+    out = {"lr": lr}
+    for kind, (rel, lr_rel) in ADAMW_TOL.items():
+        share = 0.0
+        for n, want in cpu[kind].items():
+            diff = float((card[kind][n].detach().cpu() - want).abs().max())
+            bound = rel * float(want.abs().max()) + lr_rel * lr
+            share = max(share, diff / bound if bound else
+                        (0.0 if diff == 0 else math.inf))
+        out[kind] = share
+    return out
+
+
+def train_full(dev, seed: int) -> dict:
+    """TRAIN_ARCH at its published config through ``build_trainer``'s step:
+    TRAIN_WARMUP + TRAIN_TIMED steps event-timed, TRAIN_PROFILED more under
+    ``torch.profiler``, then AdamW alone (``apply_updates``) event-timed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.optim.adamw import AdamWConfig, apply_updates
+    cfg = get_config(TRAIN_ARCH)
+    steps = TRAIN_WARMUP + TRAIN_TIMED + TRAIN_PROFILED
+    opt_cfg = AdamWConfig(warmup_steps=1, total_steps=steps)
+    torch.cuda.reset_peak_memory_stats()
+    model, init_state, step, _ = build_trainer(cfg, opt_cfg, make_host_mesh(),
+                                               device=dev)
+    carry = init_state(torch.Generator(dev).manual_seed(seed))
+    source = make_source(DataConfig(seed=17, global_batch=TRAIN_BATCH,
+                                    seq_len=TRAIN_SEQ), cfg)
+    losses, gnorms, ms = [], [], []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    for s in range(TRAIN_WARMUP + TRAIN_TIMED):
+        batch = source.batch(s)
+        start.record()
+        carry, m = step(carry, batch)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    batches = [source.batch(s) for s in range(len(ms), steps)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for batch in batches:
+            carry, m = step(carry, batch)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        end.record()
+        end.synchronize()
+    prof_ms = start.elapsed_time(end)
+    events = sorted(prof.key_averages(),
+                    key=lambda ev: -ev.self_device_time_total)
+    dev_ms = sum(ev.self_device_time_total for ev in events) / 1e3
+    gemm_ms = sum(ev.self_device_time_total for ev in events
+                  if GEMM_KERNEL.search(ev.key)) / 1e3
+    peak = torch.cuda.max_memory_allocated()
+    # AdamW alone on the model's parameters, its moments and f32 gradients
+    _, opt_state = carry
+    params = dict(model.named_parameters())
+    grads = {n: torch.zeros_like(p, dtype=torch.float32)
+             for n, p in params.items()}
+    adamw_ms = time_ms(lambda: apply_updates(params, grads, opt_state,
+                                             opt_cfg), 3)
+    timed = sorted(ms[TRAIN_WARMUP:])
+    n = cfg.param_count()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    attn = 12 * cfg.n_layers * TRAIN_SEQ * cfg.d_model * tokens
+    flops = 6 * n * tokens + attn
+    flops_as_run = flops * 4 / 3           # remat repeats the forward
+    step_ms = timed[len(timed) // 2]
+    adamw_bytes = 28 * n                   # read p, g, mu, nu; write p, mu, nu
+    del grads, params, carry, model, step
+    return {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "dtype": cfg.dtype, "remat": cfg.remat, "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "grad_accum": 1, "param_count": n,
+        "warmup_ms": ms[:TRAIN_WARMUP], "step_ms": ms[TRAIN_WARMUP:],
+        "step_ms_median": step_ms, "step_ms_min": timed[0],
+        "step_ms_max": timed[-1], "tok_per_s": tokens / (step_ms / 1e3),
+        "model_flops": flops, "model_flops_as_run": flops_as_run,
+        "mfu": flops / (step_ms / 1e3) / PEAK[torch.bfloat16],
+        "bound_ms": flops / PEAK[torch.bfloat16] * 1e3,
+        "bound_as_run_ms": flops_as_run / PEAK[torch.bfloat16] * 1e3,
+        "bound_by": "operations",
+        "adamw_ms": adamw_ms, "adamw_bytes": adamw_bytes,
+        "adamw_bound_ms": adamw_bytes / HBM_BW * 1e3,
+        "profiled_steps": TRAIN_PROFILED,
+        "profiled_event_ms": prof_ms, "profiled_device_ms": dev_ms,
+        "device_busy_share": dev_ms / prof_ms if prof_ms else None,
+        "gemm_device_ms_per_step": gemm_ms / TRAIN_PROFILED,
+        "top_kernels_ms_per_step": [
+            [ev.key[:100], ev.self_device_time_total / 1e3 / TRAIN_PROFILED,
+             ev.count // TRAIN_PROFILED] for ev in events[:12]],
+        "max_memory_allocated": peak, "losses": losses,
+        "grad_norms": gnorms}
+
+
+def cli_runs(tmp: str, mode: str) -> dict:
+    """The CLI on the card, as a user runs it, in this process, under
+    PyTorch's default algorithms or (``mode="deterministic"``)
+    ``use_deterministic_algorithms``: uninterrupted, with a checkpoint every
+    4 steps and a fault at 6, and again with ``--resume``; the losses of
+    each run and what it printed.  Only the fault run's RuntimeError is
+    caught: any other failure ends the phase."""
+    from repro_torch.launch import train
+    prev = signal.getsignal(signal.SIGTERM)    # main installs its handler
+    ck = os.path.join(tmp, f"train-{mode}")
+    runs = {}
+    try:
+        torch.use_deterministic_algorithms(mode == "deterministic")
+        for run, extra in (("uninterrupted", ["--ckpt-dir", ck + "-a"]),
+                           ("fault", ["--ckpt-dir", ck + "-b",
+                                      "--save-every", "4",
+                                      "--inject-fault-at", "6"]),
+                           ("resumed", ["--ckpt-dir", ck + "-b",
+                                        "--resume"])):
+            out, losses, error = io.StringIO(), None, None
+            with contextlib.redirect_stdout(out):
+                if run != "fault":
+                    losses = train.main(TRAIN_CLI + extra)
+                else:
+                    try:
+                        train.main(TRAIN_CLI + extra)
+                    except RuntimeError as e:
+                        error = str(e)
+            lines = out.getvalue().splitlines()
+            runs[f"{mode}/{run}"] = {
+                "losses": losses, "error": error,
+                "resumed_line": next((ln for ln in lines
+                                      if ln.startswith("resumed from")),
+                                     None),
+                "last_line": lines[-1] if lines else None}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        signal.signal(signal.SIGTERM, prev)
+    return runs
+
+
+def train_cli(tmp: str) -> dict:
+    """``cli_runs`` in PyTorch's default mode here, then in the
+    deterministic mode in a process of its own, whose cuBLAS takes
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` before its first call (set in this
+    process, it slows every later cuBLAS call, the library yardsticks
+    included)."""
+    runs = cli_runs(tmp, "default")
+    code = ("import json, sys; sys.path[:0] = {!r}; import chip_smoke; "
+            "print(json.dumps(chip_smoke.cli_runs({!r}, 'deterministic')))"
+            ).format([ROOT, os.path.join(ROOT, "src")], tmp)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    child = subprocess.run([sys.executable, "-c", code], env=env,
+                           capture_output=True, text=True, timeout=600)
+    if child.returncode:
+        raise RuntimeError(f"the deterministic CLI runs exited "
+                           f"{child.returncode}: {child.stderr[-2000:]}")
+    runs.update(json.loads(child.stdout.splitlines()[-1]))
+    return runs
+
+
+def run_train(dev, seed: int, failures: list) -> None:
+    """The train phase: ``train_parity``, ``train``, ``train_families`` and
+    ``train_cli``."""
+    from repro_torch.configs import ARCHS, get_config, get_smoke_config
+    from repro_torch.kernels import cuda
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dtype in ("float32", "bfloat16"):
+            cfg = get_config(TRAIN_ARCH).scaled(dtype=dtype, **PARITY_CUT)
+            t0 = time.perf_counter()
+            r = parity_steps(cfg, seed, dev)
+            tol = TRAIN_TOL[dtype]
+            keys = ("loss", "grad_norm") if dtype == "float32" else ("loss",)
+            rel = {k: max(abs(a - b) / abs(b) for a, b in
+                          zip(r[k], r[k + "_cpu"])) for k in keys}
+            flips = max(r["params_beyond"]) / r["param_count"]
+            ok = all(v <= tol for v in rel.values()) and all(
+                math.isfinite(v) for v in r["loss"] + r["grad_norm"]) and \
+                all(r["adamw"][k] <= 1 for k in ADAMW_TOL) and (
+                    dtype != "float32" or flips <= PARAM_FLIP_SHARE)
+            emit({"phase": "train_parity", "arch": TRAIN_ARCH, "dtype": dtype,
+                  "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                  "batch": PARITY_BATCH, "seq": PARITY_SEQ, "tf32": False,
+                  **r, "rel_err": rel, "tol": tol, "flip_share": flips,
+                  "flip_share_max": PARAM_FLIP_SHARE,
+                  "seconds": time.perf_counter() - t0, "ok": ok})
+            if not ok:
+                failures.append(f"train_parity {dtype}: card vs CPU {rel} "
+                                f"(tol {tol}), AdamW {r['adamw']} (tol 1), "
+                                f"{flips} of the parameters beyond "
+                                f"{PARAM_DIFF}")
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+
+    r = train_full(dev, seed)
+    ok = all(math.isfinite(v) for v in r["losses"] + r["grad_norms"]) \
+        and r["losses"][-1] < r["losses"][0]
+    emit({"phase": "train", **r, "ok": ok})
+    if not ok:
+        failures.append(f"train {TRAIN_ARCH}: losses {r['losses']}, grad "
+                        f"norms {r['grad_norms']}")
+    torch.cuda.empty_cache()
+
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for arch in ARCHS:
+            cfg = get_smoke_config(arch).scaled(dtype="float32")
+            r = parity_steps(cfg, seed, dev, steps=1)
+            rel = {k: abs(r[k][0] - r[k + "_cpu"][0]) / abs(r[k + "_cpu"][0])
+                   for k in ("loss", "grad_norm")}
+            ok = all(v <= TRAIN_TOL["float32"] for v in rel.values()) and \
+                all(r["adamw"][k] <= 1 for k in ADAMW_TOL)
+            emit({"phase": "train_families", "arch": arch,
+                  "family": cfg.family, "loss": r["loss"][0],
+                  "loss_cpu": r["loss_cpu"][0], "grad_norm": r["grad_norm"][0],
+                  "grad_norm_cpu": r["grad_norm_cpu"][0], "rel_err": rel,
+                  "param_max_diff": r["param_max_diff"][0],
+                  "params_beyond": r["params_beyond"][0],
+                  "param_count": r["param_count"], "adamw": r["adamw"],
+                  "tol": TRAIN_TOL["float32"], "ok": ok})
+            if not ok:
+                failures.append(f"train_families {arch}: card vs CPU {rel}, "
+                                f"AdamW {r['adamw']} (tol 1)")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+
+    runs = train_cli(str(cuda.BUILD_DIR / f"ckpt-{os.getpid()}-"
+                         f"{time.time_ns()}"))
+    checks = {}
+    for mode in ("default", "deterministic"):
+        whole, resumed = (runs[f"{mode}/{run}"]["losses"]
+                          for run in ("uninterrupted", "resumed"))
+        checks[mode] = {
+            "whole_run_steps": len(whole),
+            "fault": runs[f"{mode}/fault"]["error"]
+            == "injected fault at step 6",
+            "resumed_line": runs[f"{mode}/resumed"]["resumed_line"]
+            == "resumed from step 4",
+            "resumed_equals_uninterrupted": len(whole) == 12
+            and resumed == whole[4:]}
+    ok = all(c["fault"] and c["resumed_line"]
+             and c["resumed_equals_uninterrupted"] for c in checks.values())
+    emit({"phase": "train_cli", "args": TRAIN_CLI, "runs": runs,
+          "checks": checks, "ok": ok})
+    if not ok:
+        failures.append(f"train_cli: {checks}")
 
 
 def entry(name, source, replaces, count, rs):
@@ -1723,6 +2114,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with counted("serve", ()):
         run_serve(dev, args.seed, failures)
+    torch.cuda.empty_cache()
+    with counted("train", ()):
+        run_train(dev, args.seed, failures)
 
     launches = {name: sum(p[name] for p in phase_launches.values())
                 for name in counters}
@@ -1734,7 +2128,7 @@ def main() -> int:
         entry("gru_cell", "src/repro_torch/csrc/gru.cu",
               "src/repro/kernels/gru.py:83", launches["gru_cell"], k3),
         entry("gru_seq", "src/repro_torch/csrc/gru.cu",
-              "src/repro/kernels/gru.py:105", launches["gru_seq"], k4),
+              "src/repro/kernels/gru.py:106", launches["gru_seq"], k4),
     ]
     emit({"clocks_power": nvidia_smi(
         "clocks.sm,power.draw,power.limit,temperature.gpu")})

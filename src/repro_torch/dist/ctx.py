@@ -7,9 +7,12 @@ serving, kernels reused standalone — it is a transparent no-op, so model
 code never imports a mesh.
 
 The active rules live in a ``contextvars.ContextVar``, so a nested context
-shadows the outer one and threads see their own rules.  Placing a tensor
-(DTensor ``redistribute``) comes with the port of ``dist/sharding.py``
-(ROADMAP Queue 1): until then a rule that returns a placement raises.
+shadows the outer one and threads see their own rules.  The rules
+(``dist.sharding.make_activation_rules``) return a placement for every name
+they know.  On one card each has extent 1: it places the whole tensor, which
+is where it is, so ``constrain`` returns it.  A placement over more than
+one device (DTensor ``redistribute`` across cards) is not ported and
+raises.
 """
 from __future__ import annotations
 
@@ -45,16 +48,18 @@ def current_rules() -> Optional[Callable]:
 def constrain(x: torch.Tensor, name: str) -> torch.Tensor:
     """Constrain ``x`` to the active placement for ``name``.
 
-    Identity when no ``activation_sharding_ctx`` is active or when the
+    Identity when no ``activation_sharding_ctx`` is active, when the
     active rules have no opinion about ``name`` (they return None) — so an
-    unknown rule name is never an error, just an unconstrained tensor.
+    unknown rule name is never an error, just an unconstrained tensor — and
+    when the placement's named axes all have extent 1 on its mesh.
     """
     rules = _RULES.get()
     if rules is None:
         return x
     placement = rules(name, tuple(x.shape))
-    if placement is None:
+    if placement is None or getattr(placement, "extent", None) == 1:
         return x
     raise NotImplementedError(
-        f"constrain({name!r}): placing an activation needs dist/sharding.py "
-        "on DTensor, which is not ported yet (ROADMAP Queue 1)")
+        f"constrain({name!r}): {placement!r} cuts the tensor over "
+        f"{getattr(placement, 'extent', '?')} devices; placing an activation "
+        "across cards (DTensor) waits for the multi-card slice")

@@ -1,3 +1,3 @@
-"""The drivers: the serving loop (``serve``), its step builders (``steps``)
-and the process-wide caches (``caches``).  Training and the dry run are not
-ported yet (ROADMAP Queue 1 items 2-4)."""
+"""The drivers: the trainer (``train``) and the server (``serve``), their
+step builders (``steps``), the host mesh (``mesh``) and the process-wide
+caches (``caches``).  The dry run is not ported yet (ROADMAP Queue 1)."""

@@ -1,6 +1,6 @@
 """The process-wide caches a ``--tuned`` driver points at.
 
-Shared by the server and, once ported, the trainer (``launch/train.py``).
+Shared by the trainer and the server.
 """
 from __future__ import annotations
 

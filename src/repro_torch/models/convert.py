@@ -6,9 +6,16 @@ and Jamba's ``blocks/attn`` on one (a layer or macro-block each), xLSTM's
 ``blocks/mlstm`` and Jamba's ``blocks/dense`` and ``blocks/moe`` on two
 (macro-block, then sublayer).  The port keeps one module per layer, so
 ``from_jax_params`` unstacks them and loads every leaf, unchanged, into the
-parameter of the same name.
+parameter of the same name; ``jax_items`` is the inverse, the view of a
+port tree (a ``state_dict``, or any mapping of the port's names) as the
+JAX tree's leaves, its per-layer tensors grouped back into stacked leaves,
+which the checkpoint, the optimizer's leaf order and the sharding rules
+read.
 """
 from __future__ import annotations
+
+import math
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -91,3 +98,78 @@ def from_jax_params(cfg: ModelConfig, tree: dict, device=None):
                 "model")
     model.load_state_dict(state, strict=True)
     return model
+
+
+def jax_leaf_index(parts) -> tuple[tuple[str, ...], tuple[int, ...]]:
+    """A leaf's path in a port tree (a dotted ``state_dict`` name split on
+    the dots, or the keys of nested mappings) as (the path of its JAX leaf,
+    its index on that leaf's stacked axes): ``blocks.mlstm.0.1.p.wq`` is
+    ((blocks, mlstm, p, wq), (0, 1)).  A stacked subtree given without
+    indices (a JAX tree itself) keeps its path and the index ()."""
+    rest, out, idx = [str(p) for p in parts], [], ()
+    while rest:
+        out.append(rest.pop(0))
+        n = STACKED.get("/".join(out), 0)
+        if n and len(rest) > n and all(r.isdigit() for r in rest[:n]):
+            idx += tuple(int(r) for r in rest[:n])
+            del rest[:n]
+    return tuple(out), idx
+
+
+class Stacked:
+    """The port's tensors of one stacked JAX leaf, by index on the stacked
+    axes (``lead`` their extents), as one array: ``shape`` and
+    ``stack()``."""
+
+    def __init__(self, members: dict):
+        self.members = dict(sorted(members.items()))
+        self.lead = tuple(max(i[a] for i in self.members) + 1
+                          for a in range(len(next(iter(self.members)))))
+        if len(self.members) != math.prod(self.lead):
+            raise ValueError(f"stack {self.lead} has {len(self.members)} "
+                             "members")
+        first = next(iter(self.members.values()))
+        self.shape = self.lead + tuple(first.shape)
+
+    def stack(self) -> torch.Tensor:
+        return torch.stack(list(self.members.values())).reshape(self.shape)
+
+
+def copy_leaf_(t: torch.Tensor, value) -> None:
+    """Fill ``t`` in place with ``value`` (an array or tensor of its exact
+    shape, cast to its dtype)."""
+    value = torch.as_tensor(np.asarray(value) if not isinstance(
+        value, torch.Tensor) else value)
+    if tuple(value.shape) != tuple(t.shape):
+        raise ValueError(f"leaf of shape {tuple(value.shape)} for a tensor "
+                         f"of shape {tuple(t.shape)}")
+    with torch.no_grad():
+        t.copy_(value)
+
+
+def _flat_items(tree: Mapping, prefix: tuple = ()):
+    for name, node in tree.items():
+        parts = prefix + tuple(str(name).split("."))
+        if isinstance(node, Mapping):
+            yield from _flat_items(node, parts)
+        else:
+            yield parts, node
+
+
+def jax_items(tree: Mapping) -> list[tuple[tuple[str, ...], object]]:
+    """The leaves of ``tree`` (a ``state_dict``, a mapping of the port's
+    names, or nested mappings) as the JAX tree's: (path, leaf) in JAX's
+    leaf order (dict keys sorted at every level), a stacked leaf as one
+    ``Stacked``."""
+    groups: dict = {}
+    for parts, node in _flat_items(tree):
+        path, idx = jax_leaf_index(parts)
+        groups.setdefault(path, {})[idx] = node
+    return [(path, m[()] if list(m) == [()] else Stacked(m))
+            for path, m in sorted(groups.items())]
+
+
+def jax_rank(name: str, t: torch.Tensor) -> int:
+    """The rank of the JAX leaf that holds ``t`` (the port's tensor named
+    ``name``): its own rank plus the stacked axes in front of it."""
+    return t.ndim + len(jax_leaf_index(name.split("."))[1])

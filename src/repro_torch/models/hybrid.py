@@ -137,9 +137,10 @@ class HybridLM(CastMixin, nn.Module):
 
     def _blocks(self):
         """Each macro-block's cast layers: ({group: [layer]}, attn layer)."""
-        stacks = {g: self._stack(f"blocks.{g}") for g, *_ in self.groups}
-        for b, ap in enumerate(self._stack("blocks.attn")):
-            yield b, {g: s[b] for g, s in stacks.items()}, ap
+        stacks = {g: self._layers(f"blocks.{g}") for g, *_ in self.groups}
+        for b, ap in enumerate(self._layers("blocks.attn")):
+            yield b, {g: self._cast_layers(s[b]) for g, s in stacks.items()}, \
+                self._cast_layers(ap)
 
     def _mamba_sub(self, mp, x, sub_cfg, with_state: bool = False):
         """One Mamba sublayer with its FFN; with ``with_state`` also the
@@ -153,11 +154,17 @@ class HybridLM(CastMixin, nn.Module):
 
     def logits(self, batch) -> torch.Tensor:
         x = self._tokens(batch["tokens"])
-        for _, mamba, ap in self._blocks():
-            for g, sub_cfg, _ in self.groups:
-                for mp in mamba[g]:
-                    x, _ = self._mamba_sub(mp, x, sub_cfg)
-            x = layer_fwd(ap, x, self.attn_ffn_cfg)
+
+        def block(h, *groups):
+            *mamba, ap = groups
+            for (_, sub_cfg, _), layers in zip(self.groups, mamba):
+                for mp in layers:
+                    h, _ = self._mamba_sub(mp, h, sub_cfg)
+            return layer_fwd(ap, h, self.attn_ffn_cfg)
+
+        stacks = [self._layers(f"blocks.{g}") for g, *_ in self.groups]
+        for b, ap in enumerate(self._layers("blocks.attn")):
+            x = self._block(block, x, *(s[b] for s in stacks), ap)
         return self._head(x)
 
     def loss(self, batch) -> torch.Tensor:

@@ -6,9 +6,11 @@ where they are stored in ``param_dtype`` (norm scales and the MoE router
 included) before the layer runs, as in the JAX package; the final norm
 stays f32 and the embedding is cast after the lookup (the same values as
 casting the table first).  ``cast_weights()`` makes those casts once for a
-block of calls, which gives the same values.  ``cfg.remat`` has no effect
-here: it trades memory for recomputation in a backward pass, and serving
-runs none.
+block of calls, which gives the same values; it casts under ``no_grad``, so
+it is for serving only, and a loss is taken outside it (the per-call cast
+is differentiable).  With ``cfg.remat``, each layer of ``logits`` (its cast
+included) is recomputed in the backward pass, as the JAX package's
+``jax.checkpoint`` of its scanned body (``CastMixin._block``).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import functools
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..dist.ctx import constrain
 from ..kernels.cuda import resolve_device
@@ -126,17 +129,37 @@ class CastMixin:
     def _cast(self, tree: dict) -> dict:
         return cast_tree(tree, self.pdtype, self.dtype)
 
-    def _cast_layers(self, module: nn.Module):
-        if isinstance(module, nn.ModuleList):
+    def _cast_layers(self, module):
+        """A layer module as its cast tree; a list of them as a list; a
+        tree cast already as it is."""
+        if isinstance(module, (nn.ModuleList, list)):
             return [self._cast_layers(m) for m in module]
+        if isinstance(module, dict):
+            return module
         return self._cast(module.tree())
 
-    def _stack(self, name: str) -> list:
-        """Each layer of the stack ``name``, cast to the activation dtype,
-        nested as the stack is."""
+    def _layers(self, name: str) -> list:
+        """The layers of the stack ``name``: cast trees under
+        ``cast_weights``, else the modules (a macro-block's sublayers as a
+        ``ModuleList``), each cast at use by ``_cast_layers`` (inside
+        ``_block`` on the loss path)."""
         if self._cast_once is not None:
             return self._cast_once[name]
-        return self._cast_layers(self.get_submodule(name))
+        return list(self.get_submodule(name))
+
+    def _block(self, fn, x: torch.Tensor, *layers) -> torch.Tensor:
+        """``fn(x, *trees)``, each of ``layers`` (from ``_layers``) given as
+        its tree cast to the activation dtype.  With ``cfg.remat`` while
+        autograd records, the block, its cast included, is recomputed in
+        the backward pass (``torch.utils.checkpoint``), as the JAX package
+        wraps its scanned body in ``jax.checkpoint``; values are
+        unchanged."""
+        def body(h):
+            return fn(h, *(self._cast_layers(m) for m in layers))
+
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(body, x, use_reentrant=False)
+        return body(x)
 
     def _weight(self, name: str) -> torch.Tensor:
         if self._cast_once is not None:
@@ -223,8 +246,9 @@ class DecoderLM(CastMixin, nn.Module):
 
     # ---- layer stack -----------------------------------------------------------
     def _run_layers(self, x) -> torch.Tensor:
-        for lp in self._stack("layers"):
-            x = layer_fwd(lp, x, self.cfg)
+        for layer in self._layers("layers"):
+            x = self._block(lambda h, lp: layer_fwd(lp, h, self.cfg), x,
+                            layer)
         return x
 
     def logits(self, batch) -> torch.Tensor:
@@ -250,7 +274,7 @@ class DecoderLM(CastMixin, nn.Module):
         logits of the last position (B, 1, V))."""
         x = self._embed_tokens(batch)
         ks, vs = [], []
-        for lp in self._stack("layers"):
+        for lp in map(self._cast_layers, self._layers("layers")):
             x, cache = layer_prefill(lp, x, self.cfg, max_len=max_len)
             ks.append(cache["k"])
             vs.append(cache["v"])
@@ -264,7 +288,8 @@ class DecoderLM(CastMixin, nn.Module):
         token's K/V into ``cache`` in place; returns (logits (B, V), cache)."""
         x = F.embedding(tokens[:, None], self.embed).to(self.dtype)
         kv = cache["kv"]
-        for i, lp in enumerate(self._stack("layers")):
+        for i, lp in enumerate(map(self._cast_layers,
+                                  self._layers("layers"))):
             x, _ = layer_decode(lp, x, {"k": kv["k"][i], "v": kv["v"][i]},
                                 int(pos), self.cfg)
         x = rmsnorm(x, self.norm_f)

@@ -103,10 +103,14 @@ class WhisperModel(CastMixin, nn.Module):
         cfg = self.cfg
         nf = norm_fn(cfg.norm)
         x = audio_embeds.to(self.dtype)
-        for lp in self._stack("enc"):
-            x = x + attention(lp["attn"], nf(x, lp["norm1"]), cfg,
+
+        def body(h, lp):
+            h = h + attention(lp["attn"], nf(h, lp["norm1"]), cfg,
                               causal=False)
-            x = x + ffn(lp["ffn"], nf(x, lp["norm2"]), cfg)
+            return h + ffn(lp["ffn"], nf(h, lp["norm2"]), cfg)
+
+        for layer in self._layers("enc"):
+            x = self._block(body, x, layer)
         return rmsnorm(x, self.norm_enc)
 
     # ---- decoder (teacher forcing) ----------------------------------------------
@@ -115,11 +119,15 @@ class WhisperModel(CastMixin, nn.Module):
         nf = norm_fn(cfg.norm)
         enc_out = self.encode(batch["audio_embeds"])
         x = self._tokens(batch["tokens"])
-        for lp in self._stack("dec"):
-            x = x + attention(lp["self"], nf(x, lp["norm1"]), cfg)
-            x = x + cross_attention(lp["cross"], nf(x, lp["norm2"]), enc_out,
+
+        def body(h, lp):
+            h = h + attention(lp["self"], nf(h, lp["norm1"]), cfg)
+            h = h + cross_attention(lp["cross"], nf(h, lp["norm2"]), enc_out,
                                     cfg)
-            x = x + ffn(lp["ffn"], nf(x, lp["norm3"]), cfg)
+            return h + ffn(lp["ffn"], nf(h, lp["norm3"]), cfg)
+
+        for layer in self._layers("dec"):
+            x = self._block(body, x, layer)
         x = rmsnorm(x, self.norm_f)
         return x @ self._weight("lm_head")
 
@@ -148,7 +156,7 @@ class WhisperModel(CastMixin, nn.Module):
         B, Ta, D = enc_out.shape
         KV, hd = cfg.n_kv_heads, cfg.hd
         caches = {"k": [], "v": [], "ck": [], "cv": []}
-        for lp in self._stack("dec"):
+        for lp in map(self._cast_layers, self._layers("dec")):
             a, kv = prefill_attention(lp["self"], nf(x, lp["norm1"]), cfg,
                                       max_len=max_len)
             x = x + a
@@ -176,7 +184,7 @@ class WhisperModel(CastMixin, nn.Module):
         H, hd = cfg.n_heads, cfg.hd
         B = x.shape[0]
         kv, cross = cache["kv"], cache["cross"]
-        for i, lp in enumerate(self._stack("dec")):
+        for i, lp in enumerate(map(self._cast_layers, self._layers("dec"))):
             a, _ = decode_attention(lp["self"], nf(x, lp["norm1"]),
                                     {"k": kv["k"][i], "v": kv["v"][i]},
                                     int(pos), cfg)

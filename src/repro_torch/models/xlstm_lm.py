@@ -94,11 +94,15 @@ class XLSTMLM(CastMixin, nn.Module):
         cfg = self.cfg
         nf = norm_fn(cfg.norm)
         x = self._tokens(batch["tokens"])
-        for mls, sp in zip(self._stack("blocks.mlstm"),
-                           self._stack("blocks.slstm")):
+
+        def block(h, mls, sp):
             for mp in mls:
-                x = x + mlstm_block(mp["p"], nf(x, mp["norm"]), cfg)
-            x = x + slstm_block(sp["p"], nf(x, sp["norm"]), cfg)
+                h = h + mlstm_block(mp["p"], nf(h, mp["norm"]), cfg)
+            return h + slstm_block(sp["p"], nf(h, sp["norm"]), cfg)
+
+        for mls, sp in zip(self._layers("blocks.mlstm"),
+                           self._layers("blocks.slstm")):
+            x = self._block(block, x, mls, sp)
         return self._head(x)
 
     def loss(self, batch) -> torch.Tensor:
@@ -139,8 +143,9 @@ class XLSTMLM(CastMixin, nn.Module):
         nf = norm_fn(cfg.norm)
         x = self._tokens(tokens[:, None])
         mc, sc = cache["mlstm"], cache["slstm"]
-        for b, (mls, sp) in enumerate(zip(self._stack("blocks.mlstm"),
-                                          self._stack("blocks.slstm"))):
+        for b, (mls, sp) in enumerate(zip(
+                map(self._cast_layers, self._layers("blocks.mlstm")),
+                map(self._cast_layers, self._layers("blocks.slstm")))):
             for j, mp in enumerate(mls):
                 dx, _ = mlstm_decode_step(
                     mp["p"], nf(x, mp["norm"]),

@@ -39,7 +39,8 @@ from repro.launch.steps import eval_shape_params as jax_eval_shape_params
 from repro.models import build_model as jax_build_model
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.launch.steps import eval_shape_cache, eval_shape_params
-from repro_torch.models.convert import STACKED, from_jax_params
+from repro_torch.models.convert import (Stacked, from_jax_params, jax_items,
+                                        jax_leaf_index)
 
 #: every arch of the registry
 ZOO_ARCHS = list(ARCHS)
@@ -182,14 +183,17 @@ def jax_path(name: str) -> tuple[str, int]:
     """A ``state_dict`` name's leaf path in the JAX tree, and the number of
     stacked axes the JAX leaf has in front: ``blocks.mlstm.0.1.p.wq`` is
     leaf (0, 1) of ``blocks/mlstm/p/wq``."""
-    parts, out, axes = name.split("."), [], 0
-    while parts:
-        out.append(parts.pop(0))
-        n = STACKED.get("/".join(out), 0)
-        if n:
-            del parts[:n]
-            axes = n
-    return "/".join(out), axes
+    path, idx = jax_leaf_index(name.split("."))
+    return "/".join(path), len(idx)
+
+
+def restacked(tree) -> dict:
+    """A port tree (name -> tensor, or a module) as the JAX tree's leaves,
+    path -> f32 numpy, its layers stacked."""
+    if isinstance(tree, torch.nn.Module):
+        tree = tree.state_dict()
+    return {"/".join(p): as_np(leaf.stack() if isinstance(leaf, Stacked)
+                               else leaf) for p, leaf in jax_items(tree)}
 
 
 def assert_eval_shapes_match(arch: str) -> None:

@@ -1,6 +1,6 @@
 """On the card only (marker ``gpu``): every CUDA kernel of the port against
-its plain PyTorch version, the measured tuner's evaluator, and the slice end
-to end.  Imports nothing of
+its plain PyTorch version, the measured tuner's evaluator, the slice end
+to end, serving and the train step against the CPU.  Imports nothing of
 JAX, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -686,3 +686,122 @@ def test_served_model_on_card_matches_the_cpu(cuda_device, arch, dtype):
         ref = card.logits(full)[:, 6:].float().cpu()
     tol = 1e-3 if dtype == "float32" else 5e-2
     assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+@pytest.fixture
+def no_tf32():
+    """f32 products in f32 (cuBLAS), restored afterwards."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def assert_adamw_step_matches_the_cpu(model, opt_state, batch, opt_cfg):
+    """One AdamW step (``apply_updates``) on the card's parameters and
+    moments from the card's gradient of the loss on ``batch``, against the
+    same step on the CPU from copies of those tensors: each parameter
+    within 1e-6 * max|leaf| + 1e-5 * lr, each moment within 1e-5 *
+    max|leaf| (the same elementwise f32 formula; the global norm sums in
+    another order).  The train steps' parameters cannot be held so: the
+    two devices' gradients differ in rounding, and Adam's update, near
+    sign(g) * lr, moves an element whose gradient is 0 to within that
+    rounding up to 2 lr apart."""
+    from repro_torch.optim.adamw import OptState, apply_updates
+    params = dict(model.named_parameters())
+    grads = dict(zip(params, torch.autograd.grad(
+        model.loss(batch), list(params.values()), allow_unused=True,
+        materialize_grads=True)))
+
+    def host(tree):
+        return {n: t.detach().cpu().clone() for n, t in tree.items()}
+
+    cpu_p, cpu_mu, cpu_nu = host(params), host(opt_state.mu), \
+        host(opt_state.nu)
+    cpu_state = OptState(opt_state.step.cpu().clone(), cpu_mu, cpu_nu)
+    apply_updates(params, grads, opt_state, opt_cfg)
+    lr = float(apply_updates(cpu_p, host(grads), cpu_state, opt_cfg)[2]["lr"])
+    assert lr > 0
+    for got, want, lr_rel in ((params, cpu_p, 1e-5), (opt_state.mu, cpu_mu, 0),
+                              (opt_state.nu, cpu_nu, 0)):
+        for n, w in want.items():
+            assert got[n].device.type == "cuda"
+            bound = (1e-6 if lr_rel else 1e-5) * float(w.abs().max()) \
+                + lr_rel * lr
+            diff = float((got[n].detach().cpu() - w).abs().max())
+            assert diff <= bound, (n, diff, bound)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["olmo-1b", "mixtral-8x7b", "xlstm-1.3b",
+                                  "jamba-1.5-large-398b", "whisper-medium"])
+def test_train_step_on_card_matches_the_cpu(cuda_device, no_tf32, arch):
+    """Two f32 smoke-config train steps (``make_train_step``: the loss's
+    gradient and AdamW in place) on the card against the same weights and
+    batches on the CPU, at the full lr from the first step: loss and
+    grad_norm within rtol 1e-5 (the second step's after the first step's
+    update); then a third AdamW step on the card's state held to the CPU's
+    elementwise (``assert_adamw_step_matches_the_cpu``)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import (DataConfig, add_frontend_stub,
+                                           make_source)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import AdamWConfig
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    opt_cfg = AdamWConfig(warmup_steps=1)
+    card, card_opt, card_step = make_train_step(cfg, opt_cfg,
+                                                device=cuda_device)
+    cpu, _, cpu_step = make_train_step(cfg, opt_cfg, device="cpu")
+    cpu.init(torch.Generator().manual_seed(0))
+    card.load_state_dict(cpu.state_dict())
+    source = make_source(DataConfig(seed=1, global_batch=4, seq_len=16), cfg)
+    for s in range(3):
+        host = add_frontend_stub(source.batch(s), cfg, s)
+        batch = {k: torch.as_tensor(v) for k, v in host.items()}
+        on_card = {k: v.to(cuda_device) for k, v in batch.items()}
+        if s == 2:
+            assert_adamw_step_matches_the_cpu(card, card_opt, on_card,
+                                              opt_cfg)
+            break
+        got = card_step(on_card)
+        want = cpu_step(batch)
+        np.testing.assert_allclose(float(want["lr"]), opt_cfg.lr,
+                                   rtol=1e-6)
+        for key in ("loss", "grad_norm"):
+            assert got[key].device.type == "cuda"
+            np.testing.assert_allclose(float(got[key]), float(want[key]),
+                                       rtol=1e-5, err_msg=f"{key} {s}")
+    assert all(p.device.type == "cuda" for p in card.parameters())
+
+
+@pytest.mark.gpu
+def test_trainer_on_card_never_runs_on_the_cpu(cuda_device, tmp_path):
+    """``build_trainer`` on the card: the batch the loss sees, every
+    parameter, moment and the step counter, and the metrics are CUDA
+    tensors; the driver's CLI on the card lowers the loss."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import build_trainer, main
+    from repro_torch.optim.adamw import AdamWConfig
+    cfg = get_smoke_config("olmo-1b")
+    model, init_state, step, _ = build_trainer(
+        cfg, AdamWConfig(warmup_steps=1), make_host_mesh(), device=None)
+    carry = init_state(torch.Generator(cuda_device).manual_seed(0))
+    seen = []
+    loss = model.loss
+    model.loss = lambda batch: seen.append(batch["tokens"].device) \
+        or loss(batch)
+    source = make_source(DataConfig(global_batch=4, seq_len=32), cfg)
+    for s in range(2):
+        carry, metrics = step(carry, source.batch(s))
+    assert seen == [torch.device("cuda", 0)] * 2
+    _, opt = carry
+    tensors = [*model.parameters(), opt.step, *opt.mu.values(),
+               *opt.nu.values(), *metrics.values()]
+    assert all(t.device.type == "cuda" for t in tensors)
+    assert int(opt.step) == 2
+    losses = main(["--arch", "olmo-1b", "--smoke", "--steps", "12",
+                   "--batch", "4", "--seq", "64", "--ckpt-dir",
+                   str(tmp_path)])
+    assert losses[-1] < losses[0]

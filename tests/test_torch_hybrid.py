@@ -247,7 +247,7 @@ def test_cast_weights_gives_the_same_values():
         want = tm.logits(tb)
         with tm.cast_weights():
             got = tm.logits(tb)
-            cast = tm._stack("blocks.moe")
+            cast = tm._layers("blocks.moe")
     assert torch.equal(got, want)
     assert cast[1][0]["mamba"]["A_log"].dtype == torch.bfloat16
     assert cast[1][0]["ffn"]["router"].dtype == torch.bfloat16

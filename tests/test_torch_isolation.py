@@ -50,7 +50,10 @@ def test_importing_the_port_loads_no_jax():
                  "models.xlstm_lm", "models.mamba", "models.hybrid",
                  "models.api",
                  "models.convert", "launch", "launch.steps",
-                 "launch.caches", "launch.serve"):
+                 "launch.caches", "launch.serve", "launch.train",
+                 "launch.mesh", "optim", "optim.adamw", "data",
+                 "data.pipeline", "checkpoint", "checkpoint.ckpt", "runtime",
+                 "runtime.fault_tolerance", "dist.compat", "dist.sharding"):
         assert f"repro_torch.{name}" in res["modules"]
 
 

@@ -335,7 +335,7 @@ def test_cast_weights_gives_the_same_values():
         want = tm.logits(tb)
         with tm.cast_weights():
             got = tm.logits(tb)
-            router = tm._stack("layers")[0]["ffn"]["router"]
+            router = tm._layers("layers")[0]["ffn"]["router"]
     assert torch.equal(got, want)
     assert router.dtype == torch.bfloat16      # rounded, as in JAX
     assert tm._cast_once is None
@@ -364,7 +364,7 @@ def test_constrain_is_identity_without_rules_and_raises_on_a_placement():
         assert constrain(x, "heads") is x
         with activation_sharding_ctx(lambda n, s: "placed") as inner:
             assert current_rules() is inner
-            with pytest.raises(NotImplementedError, match="Queue 1"):
+            with pytest.raises(NotImplementedError, match="multi-card"):
                 constrain(x, "residual")
         assert constrain(x, "logits") is x
     assert current_rules() is None

@@ -182,7 +182,7 @@ def test_cast_weights_gives_the_same_values():
         want = tm.logits(tb)
         with tm.cast_weights():
             got = tm.logits(tb)
-            cast = tm._stack("blocks.mlstm")
+            cast = tm._layers("blocks.mlstm")
     assert torch.equal(got, want)
     assert len(cast) == tm.nb and len(cast[0]) == tm.nm
     assert cast[0][0]["p"]["b_f"].dtype == torch.bfloat16   # as in JAX
