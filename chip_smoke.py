@@ -29,8 +29,8 @@ launch the hand-written CUDA kernels with the plan.
    the same pipeline and cache, and again from the file with the memo
    cleared (``conv_compile`` lines: calls, transform steps, lowering, the
    fused GEMM (m, n, k) of a one-call selection, seconds).
-4. Seven phases of the main path, each with every launch counter set to 0
-   just before it and read just after (one ``launches`` line each):
+4. Nine phases, each with every launch counter set to 0 just before it
+   and read just after (one ``launches`` line each):
 
    * ``plan`` — with an empty tuning cache as the default, so the tile is
      the compiler's: the 8 DeepBench GEMMs (paper Fig. 3) in f32 and in
@@ -126,6 +126,24 @@ launch the hand-written CUDA kernels with the plan.
      cuBLAS's default, as the variable slows its calls): uninterrupted,
      with ``--save-every 4 --inject-fault-at 6``, and again with
      ``--resume``.
+   * ``train_placed`` — the train phase's olmo-1b (published config, B 8 x
+     T 2048, bf16, remat) on a one-rank NCCL process group (a
+     ``FileStore`` under ``build/repro_torch/``) and its (1, 1)
+     ``DeviceMesh``: ``build_trainer`` places the parameters and AdamW
+     moments as DTensors and runs the step under the activation rules and
+     ``implicit_replication``; ``PLACED_STEPS`` steps of the train phase's
+     seed and batches under the profiler, each loss held to the ``train``
+     line's same step (``PLACED_TOL`` relative; ``bit_equal`` says whether
+     they are the same bits), step times beside ``train``'s, the busy
+     share and peak memory; then a checkpoint of the placed state (20.5
+     GB, written under ``build/repro_torch/`` and deleted) restored into
+     an unplaced trainer, every parameter, moment and the step equal to
+     the bit.  No K1-K4 run there.
+   * ``dryrun`` — ``repro_torch.launch.dryrun.run_cell`` on the host (a
+     ``fake`` process group of 512 ranks, each step traced under
+     ``FakeTensorMode``) for ``DRYRUN_CELLS`` at their published configs:
+     one line a cell with its seconds, FLOPs, bytes, collectives, memory,
+     roofline terms on ``gpu_sm`` and ``model_flops_ratio``; no K1-K4.
 
    K1 and K2 run on the main loop their dtype and K take (``wgmma``: bf16
    after one transposing pass of B; ``simt``: f32), with split-K where the
@@ -198,8 +216,12 @@ launch the hand-written CUDA kernels with the plan.
    first; in either mode a CLI run that fails other than by the injected
    fault, the fault run not failing with it, the resumed run not printing
    "resumed from step 4" or its losses for steps 4-11 not equal to the
-   uninterrupted run's); when there is no card it prints nothing and
-   exits 1.
+   uninterrupted run's), or a ``train_placed`` loss off the ``train``
+   phase's same step by more than ``PLACED_TOL`` relative or a restored
+   tensor not equal to the placed one, or a ``dryrun`` cell not ``ok``,
+   with no FLOPs or collective bytes, or with one rank's parameter or
+   moment bytes other than the rules' shard shapes give; when there is no
+   card it prints nothing and exits 1.
 
 Inputs: uniform(-1, 1) from ``np.random.default_rng(seed)``; the GRU
 weights are uniform(-1/sqrt(H), 1/sqrt(H)), PyTorch's own GRU init.
@@ -252,6 +274,7 @@ import json
 import math
 import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -374,6 +397,16 @@ PARAM_FLIP_SHARE = 1e-4
 #: f32 formula, apart by a few ulps and by the global norm's sum order
 ADAMW_TOL = {"params": (1e-6, 1e-5), "mu": (1e-5, 0.0), "nu": (1e-5, 0.0)}
 #: the library GEMM kernels of a profiler trace (cuBLAS, CUTLASS), by name
+#: train_placed: the train phase's first steps again on a one-rank NCCL
+#: DeviceMesh (DTensor parameters, moments, batches and activations)
+PLACED_STEPS = 4
+PLACED_TOL = 1e-6            # each loss, relative to the train phase's
+#: dryrun: (arch, shape, mesh) cells traced on the fake 256/512-rank meshes
+DRYRUN_CELLS = [("olmo-1b", "train_4k", "single"),
+                ("olmo-1b", "train_4k", "multi"),
+                ("qwen2-7b", "prefill_32k", "single"),
+                ("mixtral-8x7b", "decode_32k", "single"),
+                ("xlstm-1.3b", "long_500k", "single")]
 GEMM_KERNEL = re.compile(r"gemm|xmma|cutlass|nvjet", re.IGNORECASE)
 #: the CLI's restart check: the smoke config, 12 steps, a fault at 6
 TRAIN_CLI = ["--arch", TRAIN_ARCH, "--smoke", "--steps", "12", "--batch",
@@ -1101,9 +1134,9 @@ def train_cli(tmp: str) -> dict:
     return runs
 
 
-def run_train(dev, seed: int, failures: list) -> None:
+def run_train(dev, seed: int, failures: list) -> dict:
     """The train phase: ``train_parity``, ``train``, ``train_families`` and
-    ``train_cli``."""
+    ``train_cli``; returns the ``train`` record."""
     from repro_torch.configs import ARCHS, get_config, get_smoke_config
     from repro_torch.kernels import cuda
     prev_tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -1137,13 +1170,13 @@ def run_train(dev, seed: int, failures: list) -> None:
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev_tf32
 
-    r = train_full(dev, seed)
-    ok = all(math.isfinite(v) for v in r["losses"] + r["grad_norms"]) \
-        and r["losses"][-1] < r["losses"][0]
-    emit({"phase": "train", **r, "ok": ok})
+    train = train_full(dev, seed)
+    ok = all(math.isfinite(v) for v in train["losses"] +
+             train["grad_norms"]) and train["losses"][-1] < train["losses"][0]
+    emit({"phase": "train", **train, "ok": ok})
     if not ok:
-        failures.append(f"train {TRAIN_ARCH}: losses {r['losses']}, grad "
-                        f"norms {r['grad_norms']}")
+        failures.append(f"train {TRAIN_ARCH}: losses {train['losses']}, "
+                        f"grad norms {train['grad_norms']}")
     torch.cuda.empty_cache()
 
     prev_tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -1190,6 +1223,167 @@ def run_train(dev, seed: int, failures: list) -> None:
           "checks": checks, "ok": ok})
     if not ok:
         failures.append(f"train_cli: {checks}")
+    return train
+
+
+def run_train_placed(dev, seed: int, failures: list, train: dict) -> None:
+    """The train phase's olmo-1b at its published config on a one-rank
+    NCCL process group and a (1, 1) ``DeviceMesh``: ``build_trainer``
+    places the parameters and moments as DTensors and runs the step under
+    the activation rules; PLACED_STEPS steps of the train phase's seed and
+    batches, each loss held to the train phase's same step, then a
+    checkpoint of the placed state restored into the unplaced trainer,
+    equal to the bit."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint.ckpt import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.dist.compat import make_mesh
+    from repro_torch.dist.sharding import full
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.optim.adamw import AdamWConfig
+
+    tag = f"{os.getpid()}-{time.time_ns()}"
+    store = dist.FileStore(str(cuda.BUILD_DIR / f"store-{tag}"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    ckpt_dir = str(cuda.BUILD_DIR / f"ckpt-placed-{tag}")
+    try:
+        cfg = get_config(TRAIN_ARCH)
+        steps = TRAIN_WARMUP + TRAIN_TIMED + TRAIN_PROFILED
+        opt_cfg = AdamWConfig(warmup_steps=1, total_steps=steps)
+        mesh = make_host_mesh()
+        torch.cuda.reset_peak_memory_stats()
+        model, init_state, step, shardings = build_trainer(
+            cfg, opt_cfg, mesh, device=dev)
+        carry = init_state(torch.Generator(dev).manual_seed(seed))
+        source = make_source(DataConfig(seed=17, global_batch=TRAIN_BATCH,
+                                        seq_len=TRAIN_SEQ), cfg)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        losses, ms = [], []
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for s in range(PLACED_STEPS):
+                batch = source.batch(s)
+                start.record()
+                carry, m = step(carry, batch)
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end))
+                losses.append(float(m["loss"]))
+        events = prof.key_averages()            # all PLACED_STEPS steps
+        dev_ms = sum(ev.self_device_time_total for ev in events) / 1e3
+        peak = torch.cuda.max_memory_allocated()
+        want = train["losses"][:PLACED_STEPS]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+        timed = sorted(ms[1:])
+        t0 = time.perf_counter()
+        Checkpointer(ckpt_dir).save(PLACED_STEPS, carry, blocking=True)
+        save_s = time.perf_counter() - t0
+        placed_model, placed_opt = carry
+        plain_mesh = make_mesh((1, 1), ("data", "model"), [dev])
+        plain, init_plain, _, plain_sh = build_trainer(cfg, opt_cfg,
+                                                       plain_mesh, device=dev)
+        t0 = time.perf_counter()
+        (plain, plain_opt), got = Checkpointer(ckpt_dir).restore(
+            PLACED_STEPS, init_plain(torch.Generator(dev).manual_seed(seed + 1)),
+            plain_sh)
+        restore_s = time.perf_counter() - t0
+        placed_params = dict(placed_model.named_parameters())
+        unequal = [n for n, p in plain.named_parameters()
+                   if not torch.equal(p, full(placed_params[n]))]
+        unequal += [f"{k}/{n}" for k in ("mu", "nu")
+                    for n, t in getattr(plain_opt, k).items()
+                    if not torch.equal(t, full(getattr(placed_opt, k)[n]))]
+        unequal += [] if int(plain_opt.step) == int(full(placed_opt.step)) \
+            else ["step"]
+        placements = sorted({str(tuple(p.placements))
+                             for p in placed_params.values()})
+        ok = all(r <= PLACED_TOL for r in rel) and not unequal \
+            and got == PLACED_STEPS and all(math.isfinite(v) for v in losses)
+        emit({"phase": "train_placed", "arch": TRAIN_ARCH,
+              "mesh": dict(mesh.shape), "backend": dist.get_backend(),
+              "param_placements": placements, "batch": TRAIN_BATCH,
+              "seq": TRAIN_SEQ, "dtype": cfg.dtype, "remat": cfg.remat,
+              "losses": losses, "train_losses": want, "rel_err": rel,
+              "tol": PLACED_TOL, "bit_equal": losses == want,
+              "step_ms": ms, "step_ms_median": timed[len(timed) // 2],
+              "step_ms_min": timed[0], "step_ms_max": timed[-1],
+              "train_step_ms_median": train["step_ms_median"],
+              "train_step_ms_min": train["step_ms_min"],
+              "train_step_ms_max": train["step_ms_max"],
+              "profiled_device_ms": dev_ms, "event_ms": sum(ms),
+              "device_busy_share": dev_ms / sum(ms),
+              "max_memory_allocated": peak,
+              "train_max_memory_allocated": train["max_memory_allocated"],
+              "checkpoint": {"save_s": save_s, "restore_s": restore_s,
+                             "restored_step": got, "unequal": unequal[:8],
+                             "n_unequal": len(unequal)},
+              "ok": ok})
+        if not ok:
+            failures.append(f"train_placed: losses {losses} against "
+                            f"{want} (rel {rel}, tol {PLACED_TOL}), "
+                            f"checkpoint unequal {unequal[:8]}")
+        del carry, placed_model, placed_opt, plain, plain_opt, model, step
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def run_dryrun(failures: list) -> None:
+    """``repro_torch.launch.dryrun`` on DRYRUN_CELLS at their published
+    configs, on the host (a ``fake`` process group of 512 ranks; each
+    step traced under ``FakeTensorMode``): every cell ``ok``, FLOPs and
+    collective bytes above 0, one rank's parameter and moment bytes equal
+    to the rules' shard shapes."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    out = str(cuda.BUILD_DIR / f"dryrun-{os.getpid()}-{time.time_ns()}")
+    try:
+        for arch, shape, mesh_kind in DRYRUN_CELLS:
+            t0 = time.perf_counter()
+            rec = dryrun.run_cell(arch, shape, mesh_kind, out)
+            seconds = time.perf_counter() - t0
+            mem = rec.get("memory", {})
+            abstract = make_production_mesh(multi_pod=mesh_kind == "multi")
+            cfg = get_config(arch)
+            want_params = dryrun.rule_param_bytes(cfg, abstract)
+            want_opt = 2 * dryrun.rule_param_bytes(cfg, abstract, 4) + 4 \
+                if rec.get("kind") == "train" else None
+            ok = rec["status"] == "ok" and rec["hlo_flops"] > 0 \
+                and rec["collectives"]["total_bytes"] > 0 \
+                and mem.get("param_bytes") == want_params \
+                and mem.get("opt_state_bytes") == want_opt
+            emit({"phase": "dryrun", "arch": arch, "shape": shape,
+                  "mesh": mesh_kind, "seconds": seconds,
+                  "rule_param_bytes": want_params,
+                  "rule_opt_state_bytes": want_opt,
+                  **{k: rec.get(k) for k in (
+                      "status", "chips", "kind", "target", "compile_s",
+                      "memory", "hlo_flops", "hlo_bytes", "collectives",
+                      "roofline", "model_flops", "model_flops_ratio",
+                      "error")}, "ok": ok})
+            if not ok:
+                failures.append(f"dryrun {arch} {shape} {mesh_kind}: "
+                                f"{rec.get('status')} {rec.get('error', '')}"
+                                f" params {mem.get('param_bytes')} against "
+                                f"{want_params}, moments "
+                                f"{mem.get('opt_state_bytes')} against "
+                                f"{want_opt}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(out, ignore_errors=True)
 
 
 def entry(name, source, replaces, count, rs):
@@ -2116,7 +2310,11 @@ def main() -> int:
         run_serve(dev, args.seed, failures)
     torch.cuda.empty_cache()
     with counted("train", ()):
-        run_train(dev, args.seed, failures)
+        train = run_train(dev, args.seed, failures)
+    with counted("train_placed", ()):
+        run_train_placed(dev, args.seed, failures, train)
+    with counted("dryrun", ()):
+        run_dryrun(failures)
 
     launches = {name: sum(p[name] for p in phase_launches.values())
                 for name in counters}

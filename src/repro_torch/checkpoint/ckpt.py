@@ -18,12 +18,16 @@ and unstacked on restore; a ``NamedTuple`` field is the path component
 ``(model, OptState)`` is written as ``0/embed``, ``0/layers/attn/wk`` …
 ``1/.step``, ``1/.mu/layers/attn/wo`` … ``1/.nu/norm_f``.
 
+A DTensor leaf (a trainer on a ``DistMesh``) is written whole: every rank
+takes its ``full_tensor()`` (a collective) and rank 0 alone writes.
 Restore fills the template's tensors in place (the model's parameters, the
-moments, the step): they are placed already.  A leaf the template holds as
-a host value (an array or a scalar) comes back as a numpy array, or, with a
-placement for it in ``shardings``, as a tensor on that placement's device.
-Writes happen on a background thread (async checkpointing); ``wait()``
-joins before the next save or at shutdown.
+moments, the step): they are placed already, and a DTensor takes its piece
+of the saved array on its own placements, which need not be those of the
+mesh that saved it.  A leaf the template holds as a host value (an array or
+a scalar) comes back as a numpy array, or, with a placement for it in
+``shardings``, as a tensor on that placement (a DTensor on a
+``DistMesh``).  Writes happen on a background thread (async
+checkpointing); ``wait()`` joins before the next save or at shutdown.
 """
 from __future__ import annotations
 
@@ -35,9 +39,11 @@ from collections.abc import Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
-from ..dist.sharding import place
+from ..dist.sharding import full, place
 from ..models.convert import (Stacked, copy_leaf_, jax_items,
                               jax_leaf_index)
 
@@ -88,10 +94,11 @@ def _host(leaf) -> np.ndarray:
     """A copy of a leaf's value in host memory, taken now: the trainer
     updates its tensors in place while an async write runs, and on the CPU
     ``.cpu().numpy()`` alone would share the live tensor's memory."""
-    if isinstance(leaf, Stacked):
-        leaf = leaf.stack().cpu()               # ``stack`` copies
+    if isinstance(leaf, Stacked):               # ``stack`` copies
+        leaf = Stacked({i: full(m.detach())
+                        for i, m in leaf.members.items()}).stack().cpu()
     elif isinstance(leaf, torch.Tensor):
-        leaf = leaf.detach().to("cpu", copy=True)
+        leaf = full(leaf.detach()).to("cpu", copy=True)
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             raise TypeError("a bfloat16 leaf has no numpy dtype to be "
@@ -132,6 +139,12 @@ def _fill_mapping(node: Mapping, path: tuple, prefix: tuple, arrays: dict,
 
 def _leaf(node, path: str, idx: tuple, arrays: dict, places: dict):
     a = arrays[path][idx] if idx else arrays[path]
+    if isinstance(node, DTensor):
+        value = distribute_tensor(
+            torch.as_tensor(np.asarray(a)).to(node.device), node.device_mesh,
+            node.placements, src_data_rank=None)
+        copy_leaf_(node.to_local(), value.to_local())
+        return node
     if isinstance(node, torch.Tensor):
         copy_leaf_(node, a)
         return node
@@ -154,6 +167,8 @@ class Checkpointer:
         self.wait()
         flat = flatten(tree)
         host_leaves = [_host(x) for _, x in flat]   # device -> host now
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return                                  # rank 0 writes
         manifest = {
             "step": step,
             "leaves": [{"path": p, "shape": list(a.shape),

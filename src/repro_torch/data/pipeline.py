@@ -5,7 +5,8 @@ resumes mid-stream with no replay drift and no state to checkpoint.  Sources:
 ``SyntheticLM`` (structured pseudo-text: mixture of Zipfian unigrams and
 repeated n-grams so models have something learnable) and ``TokenFileSource``
 (memory-mapped pre-tokenized corpus).  The sources are numpy, byte for byte
-the JAX package's; ``host_local_batch`` puts a batch on the trainer's device.
+the JAX package's; ``host_local_batch`` puts a batch on the trainer's
+placement.
 """
 from __future__ import annotations
 
@@ -82,8 +83,10 @@ def make_source(cfg: DataConfig, model_cfg: ModelConfig):
 
 
 def host_local_batch(batch: dict, mesh, shardings) -> dict:
-    """Put a host batch (numpy arrays or CPU tensors) on the device of its
-    training placement (``dist.sharding.place``)."""
+    """Put a host batch (numpy arrays or CPU tensors) on its training
+    placement (``dist.sharding.place``): on a ``DistMesh`` every rank builds
+    the same global batch from the seed and keeps its piece of it, cut by
+    ``distribute_tensor`` (``batch_shardings``); else on the device."""
     return {k: place(v, shardings[k]) for k, v in batch.items()}
 
 

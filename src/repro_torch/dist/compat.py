@@ -4,17 +4,23 @@ Everything in ``dist.sharding`` reads only ``mesh.axis_names`` and
 ``mesh.shape`` (a name -> size mapping), so a mesh here is that and, when
 it is made from devices, the devices in row-major order over its axes.
 ``abstract_mesh`` makes one without devices (the production meshes of the
-spec tests); ``make_mesh`` one over this process's devices.  The JAX
-package's shims for two generations of ``jax.sharding.AbstractMesh``
+spec tests); ``make_mesh`` one over this process's devices, for a trainer
+that runs without a process group; ``device_mesh`` one backed by a
+``torch.distributed.device_mesh.DeviceMesh`` over ranks of the initialized
+process group (NCCL on the cards, ``gloo`` on the CPU, ``fake`` for the dry
+run), on which ``dist.sharding.place`` makes DTensors.  The JAX package's
+shims for two generations of ``jax.sharding.AbstractMesh``
 (``supports_new_abstract_mesh``, ``install_abstract_mesh_compat``) bridge
 a JAX API and have no counterpart here.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 
 @dataclass(frozen=True)
@@ -34,6 +40,21 @@ class AbstractMesh:
 @dataclass(frozen=True)
 class Mesh(AbstractMesh):
     devices: tuple[torch.device, ...] = ()
+
+
+@dataclass(frozen=True)
+class DistMesh(AbstractMesh):
+    """A mesh whose axes are the dimensions of ``device_mesh`` (a
+    ``DeviceMesh`` with the same extents and names), one rank a position."""
+    device_mesh: object = field(default=None, compare=False)
+
+    @property
+    def device(self) -> torch.device:
+        """This rank's device: its card, or the CPU."""
+        kind = self.device_mesh.device_type
+        if kind == "cuda":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device(kind)
 
 
 def abstract_mesh(axis_sizes: tuple[int, ...],
@@ -61,3 +82,20 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...],
         raise ValueError(f"a {shape} mesh needs {math.prod(shape)} devices, "
                          f"got {len(devices)}")
     return Mesh(tuple(shape), tuple(axes), devices)
+
+
+def device_mesh(axis_sizes: tuple[int, ...], axis_names: tuple[str, ...],
+                device_type: str, ranks=None) -> DistMesh:
+    """A ``DeviceMesh`` of these extents and names over ``ranks`` (default:
+    every rank of the initialized process group, in order), which must
+    number exactly its size and include this rank."""
+    if not dist.is_initialized():
+        raise RuntimeError("a device mesh needs an initialized process group")
+    n = math.prod(axis_sizes)
+    ranks = list(range(dist.get_world_size()) if ranks is None else ranks)
+    if len(ranks) != n:
+        raise ValueError(f"a {tuple(axis_sizes)} mesh needs {n} ranks, got "
+                         f"{len(ranks)}")
+    grid = torch.tensor(ranks, dtype=torch.int64).reshape(tuple(axis_sizes))
+    dm = DeviceMesh(device_type, grid, mesh_dim_names=tuple(axis_names))
+    return DistMesh(tuple(axis_sizes), tuple(axis_names), dm)

@@ -3,9 +3,17 @@
 The rules are the JAX package's, line for line.  A spec is this module's
 ``PartitionSpec`` (a tuple with one entry a dimension: an axis name, a
 tuple of them, or None) and a placement its ``NamedSharding`` (a mesh and
-a spec); on one card every placement the rules give has extent 1, and
-``place`` puts a tensor on that card.  Placing a tensor over several
-cards (DTensor) is not ported.
+a spec).  On a ``compat.DistMesh`` a spec is a DTensor placement
+(``placements``: ``Shard(d)`` on each mesh dimension whose axis the spec
+names for tensor dimension d, ``Replicate()`` on the others) and ``place``
+is ``distribute_tensor``; on a mesh of one device ``place`` moves the
+tensor there.  A spec entry naming several axes, ``('pod', 'data')``,
+names them in mesh order, which is the order in which DTensor cuts a
+dimension over several mesh dimensions (major first), as JAX does.
+
+The rules describe JAX's leaves, whose layer stacks lead with replicated
+stacked axes; the port keeps one tensor a layer, and ``layer_shardings``
+drops those axes from each spec (``models.convert.jax_leaf_index``).
 
 The production mesh is (data=16, model=16) per pod with an optional leading
 ``pod`` axis; ``dp_axes`` treats every axis except the tensor-parallel
@@ -40,8 +48,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 
-from ..models.convert import jax_items
+from ..models.convert import flat_items, jax_items, jax_leaf_index
 
 #: the tensor-parallel mesh axis; everything else is data-parallel
 MODEL_AXIS = "model"
@@ -82,23 +92,68 @@ class NamedSharding:
 
     @property
     def device(self) -> torch.device:
-        """The one device that holds the whole tensor."""
+        """This process's device on the mesh: the rank's device on a
+        ``DistMesh``, else the mesh's one device."""
+        if hasattr(self.mesh, "device_mesh"):
+            return self.mesh.device
         devices = getattr(self.mesh, "devices", ())
         if len(devices) != 1:
-            raise NotImplementedError(
-                f"{self.spec} on a mesh of {len(devices)} devices: placing a "
-                "tensor across cards (DTensor) is not ported; the trainer "
-                "runs on one card")
+            raise ValueError(
+                f"{self.spec} on a mesh of {len(devices)} devices: only a "
+                "mesh of one device or a DistMesh (DTensor) places a tensor")
         return devices[0]
+
+    @property
+    def placements(self) -> list:
+        """The DTensor placements of ``spec`` on this ``DistMesh``."""
+        return placements(self.spec, self.mesh)
+
+
+def placements(spec, mesh) -> list:
+    """One placement a mesh dimension: ``Shard(d)`` where the spec names
+    that dimension's axis for tensor dimension d, ``Replicate()``
+    elsewhere.  An axis of extent 1 cuts nothing and replicates: the same
+    values, and DTensor's view rules refuse some cuts of extent 1."""
+    out = [Replicate()] * len(mesh.axis_names)
+    for d, entry in enumerate(spec):
+        for a in _axes_tuple(entry):
+            if mesh.shape[a] > 1:
+                out[mesh.axis_names.index(a)] = Shard(d)
+    return out
 
 
 def place(x, sharding) -> torch.Tensor:
-    """``x`` (an array or a tensor) on the device of ``sharding`` (a
-    ``NamedSharding`` on a one-device mesh, or a device)."""
-    dev = getattr(sharding, "device", sharding)
+    """``x`` (an array or a tensor) on ``sharding``: on a ``NamedSharding``
+    over a ``DistMesh`` a DTensor, this rank's piece cut from ``x``, which
+    every rank holds whole (``src_data_rank=None``: no collective); else
+    ``x`` on the device of a one-device mesh, or on a device.  A ``meta``
+    tensor placed on a ``DistMesh`` becomes a fake tensor of its shape, so
+    the caller must be inside a ``FakeTensorMode``."""
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(x)
-    return x.to(dev)
+    mesh = getattr(sharding, "mesh", None)
+    if hasattr(mesh, "device_mesh"):
+        if x.device.type == "meta":
+            x = _fake_like(x, mesh.device)
+        return distribute_tensor(x.to(mesh.device), mesh.device_mesh,
+                                 sharding.placements, src_data_rank=None)
+    return x.to(getattr(sharding, "device", sharding))
+
+
+def shard_shape(shape, spec, mesh) -> tuple[int, ...]:
+    """The shape of one piece of a tensor of ``shape`` cut by ``spec`` on
+    ``mesh`` (``jax.sharding.NamedSharding.shard_shape``; the rules cut
+    only dimensions their axes divide)."""
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        out[d] //= _axes_size(mesh, entry)
+    return tuple(out)
+
+
+def full(x):
+    """The whole value of ``x``: ``full_tensor()`` of a DTensor (a
+    collective), ``x`` itself otherwise."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
 
 
 # --------------------------------------------------------------------------- #
@@ -424,3 +479,58 @@ def batch_shardings(tree, mesh):
 def cache_shardings(tree, mesh, cfg):
     return _map_with_path(lambda p, leaf: NamedSharding(
         mesh, cache_spec(p, tuple(leaf.shape), mesh, cfg)), tree)
+
+
+def layer_shardings(tree, shardings) -> dict:
+    """The placement of each of ``tree``'s own tensors (a module, a
+    ``state_dict``, or nested mappings of the port's names), by dotted
+    name, from ``shardings`` (the nested tree of ``param_shardings`` or
+    ``cache_shardings`` for the same tree): a stacked JAX leaf's spec
+    without its stacked axes, which the rules leave replicated."""
+    if isinstance(tree, nn.Module):
+        tree = tree.state_dict()
+    out = {}
+    for parts, _ in flat_items(tree):
+        path, idx = jax_leaf_index(parts)
+        sh = shardings
+        for p in path:
+            sh = sh[p]
+        spec = tuple(sh.spec)
+        if any(e is not None for e in spec[:len(idx)]):
+            raise ValueError(f"{'.'.join(parts)}: stacked axes of {sh.spec} "
+                             "are cut")
+        out[".".join(parts)] = NamedSharding(sh.mesh,
+                                             _spec(spec[len(idx):]))
+    return out
+
+
+def place_module(model: nn.Module, shardings: dict) -> nn.Module:
+    """Each parameter of ``model`` made a DTensor on its placement
+    (``layer_shardings``: name -> NamedSharding over a ``DistMesh``), in
+    place (``place``: a ``meta`` parameter becomes a fake one)."""
+    for name, p in list(model.named_parameters()):
+        mod_name, _, leaf = name.rpartition(".")
+        setattr(model.get_submodule(mod_name), leaf, nn.Parameter(
+            place(p.detach(), shardings[name]),
+            requires_grad=p.requires_grad))
+    return model
+
+
+def place_tree(tree: Mapping, shardings: dict, prefix: str = "") -> dict:
+    """``tree`` (nested mappings of tensors) placed by ``shardings``
+    (dotted name -> NamedSharding, as ``layer_shardings`` gives it)."""
+    return {k: place_tree(t, shardings, f"{prefix}{k}.")
+            if isinstance(t, Mapping) else place(t, shardings[prefix + k])
+            for k, t in tree.items()}
+
+
+def _fake_like(t: torch.Tensor, device) -> torch.Tensor:
+    """A tensor of ``t``'s shape and dtype on ``device`` that holds no
+    memory: inside the active ``FakeTensorMode`` only."""
+    from torch._guards import detect_fake_mode
+
+    if detect_fake_mode() is None:
+        raise RuntimeError("placing a meta tensor needs an active "
+                           "FakeTensorMode: its whole value would be "
+                           "allocated")
+    return torch.empty(t.shape, dtype=t.dtype, device=device)

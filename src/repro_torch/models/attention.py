@@ -14,10 +14,12 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from ..dist.ctx import constrain
+from ..dist.ctx import activation_sharding_ctx, constrain
 from .config import ModelConfig
-from .layers import TreeModule, apply_rotary, init_dense_, param, rotary
+from .layers import (TreeModule, apply_rotary, init_dense_, linear, param,
+                     reshape, rotary)
 
 NEG_INF = -1e30
 
@@ -60,17 +62,17 @@ def _project_qkv(p, x, cfg: ModelConfig):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (constrain(q.reshape(B, T, H, hd), "heads"),
-            constrain(k.reshape(B, T, KV, hd), "heads"),
-            constrain(v.reshape(B, T, KV, hd), "heads"))
+    return (constrain(reshape(q, B, T, H, hd), "heads"),
+            constrain(reshape(k, B, T, KV, hd), "heads"),
+            constrain(reshape(v, B, T, KV, hd), "heads"))
 
 
 def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     """(B, S, KV, hd) -> (B, S, H, hd) by repeating each KV head."""
     B, S, KV, hd = k.shape
     rep = n_heads // KV
-    return k[:, :, :, None, :].expand(B, S, KV, rep, hd) \
-        .reshape(B, S, n_heads, hd)
+    return reshape(k[:, :, :, None, :].expand(B, S, KV, rep, hd),
+                   B, S, n_heads, hd)
 
 
 #: query-chunk size above which attention runs chunked (memory O(T*chunk))
@@ -81,20 +83,28 @@ def _softmax_to(scores: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.softmax(scores, dim=-1, dtype=torch.float32).to(dtype)
 
 
-def _attend(q, k, v, positions, cfg: ModelConfig, causal: bool):
+def _attend(q, k, v, positions, cfg: ModelConfig, causal: bool,
+            key_positions=None):
     """Softmax attention on projected/rotated q, k, v (B, T|S, H, hd).
     A prompt longer than ``ATTN_CHUNK`` and a multiple of it runs in query
-    chunks: exact softmax per row, activation memory O(T * chunk)."""
+    chunks: exact softmax per row, activation memory O(T * chunk).
+    ``positions`` are the queries'; the keys' are ``key_positions``, else
+    ``positions`` when it covers S, else 0..S-1.  DTensors (a trainer on a
+    ``DistMesh``) go to ``_attend_pieces``."""
+    if isinstance(q, DTensor):
+        return _attend_pieces(q, k, v, positions, cfg, causal)
     B, T, H, hd = q.shape
     S = k.shape[1]
     scale = score_scale(hd, q.dtype)
+    if key_positions is None and positions.shape[0] >= S:
+        key_positions = positions
 
     def block(q_blk, pos_blk):
         scores = constrain(torch.einsum("bthd,bshd->bhts", q_blk, k),
                            "scores") / scale
         if causal:
             i = pos_blk[:, None]
-            j = positions[None, :S] if positions.shape[0] >= S \
+            j = key_positions[None, :S] if key_positions is not None \
                 else torch.arange(S, device=q.device)[None, :]
             mask = j <= i
             if cfg.sliding_window:
@@ -109,6 +119,33 @@ def _attend(q, k, v, positions, cfg: ModelConfig, causal: bool):
     outs = [block(q[:, s:s + ATTN_CHUNK], positions[s:s + ATTN_CHUNK])
             for s in range(0, T, ATTN_CHUNK)]
     return torch.cat(outs, dim=1)
+
+
+def _attend_pieces(q, k, v, positions, cfg: ModelConfig, causal: bool):
+    """``_attend`` on each rank's pieces: every (batch, head) pair is
+    independent, so the queries keep their placement (batch, and heads or
+    positions cut), the keys and values take it with every position whole,
+    and the products run on local tensors, with the rules off.  Through
+    DTensor's own einsum the (batch, heads) cuts merge into one strided
+    cut, whose redistribution plans DTensor searches for by a graph search
+    that takes minutes on a three-axis mesh.  The keys' and values'
+    gradients are partial sums over the ranks that cut the queries'
+    positions."""
+    mesh, qp = q.device_mesh, tuple(q.placements)
+    whole = [Replicate() if p == Shard(1) else p for p in qp]
+    grads = [Partial() if p == Shard(1) else p for p in qp]
+    k = k.redistribute(mesh, whole).to_local(grad_placements=grads)
+    v = v.redistribute(mesh, whole).to_local(grad_placements=grads)
+    rep = [Replicate()] * mesh.ndim
+    pos = positions if isinstance(positions, DTensor) \
+        else DTensor.from_local(positions, mesh, rep, run_check=False)
+    key_pos = pos.full_tensor()
+    q_pos = pos.redistribute(mesh, [Shard(0) if p == Shard(1)
+                                    else Replicate() for p in qp]).to_local()
+    with activation_sharding_ctx(lambda name, shape: None):
+        out = _attend(q.to_local(grad_placements=qp), k, v, q_pos, cfg,
+                      causal, key_positions=key_pos)
+    return DTensor.from_local(out, mesh, qp, run_check=False)
 
 
 def attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -126,8 +163,8 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
     k = _expand_kv(k, H)
     v = _expand_kv(v, H)
     out = _attend(q, k, v, positions, cfg, causal)
-    out = constrain(out, "heads").reshape(B, T, H * hd)
-    return constrain(out @ p["wo"], "residual")
+    out = reshape(constrain(out, "heads"), B, T, H * hd)
+    return constrain(linear(out, p["wo"]), "residual")
 
 
 # --------------------------------------------------------------------------- #
@@ -159,8 +196,8 @@ def prefill_attention(p, x, cfg: ModelConfig, max_len: int = 0):
     k = apply_rotary(k, cos, sin)
     out = _attend(q, _expand_kv(k, H), _expand_kv(v, H), pos, cfg,
                   causal=True)
-    out = constrain(out, "heads").reshape(B, T, H * cfg.hd)
-    out = constrain(out @ p["wo"], "residual")
+    out = reshape(constrain(out, "heads"), B, T, H * cfg.hd)
+    out = constrain(linear(out, p["wo"]), "residual")
     max_len = max(max_len, T)
     if cfg.sliding_window:
         S = min(cfg.sliding_window, max_len)
@@ -206,19 +243,37 @@ def decode_attention(p: dict, x: torch.Tensor, cache: dict, pos: int,
 
     kk = _expand_kv(ck, H)   # (B, S, H, hd)
     vv = _expand_kv(cv, H)
-    scores = torch.einsum("bthd,bshd->bhts", q, kk)[:, :, 0] \
-        / score_scale(hd, q.dtype)
     span = torch.arange(S, device=x.device)
     if cfg.sliding_window:
         age = (pos % S - span) % S          # rolling-buffer age of each slot
         valid = (age < cfg.sliding_window) & (span < S) & (age <= pos)
     else:
         valid = span <= pos
-    scores = scores.masked_fill_(~valid, NEG_INF)
-    w = _softmax_to(scores, x.dtype)
-    out = torch.einsum("bhs,bshd->bhd", w, vv).reshape(B, H * hd)
-    out = (out @ p["wo"]).reshape(B, 1, D)
+    out = reshape(_decode_core(q, kk, vv, valid), B, H * hd)
+    out = reshape(out @ p["wo"], B, 1, D)
     return out, cache
+
+
+def _decode_core(q, kk, vv, valid):
+    """One query against the cache: q (B, 1, H, hd), kk and vv (B, S, H,
+    hd), ``valid`` (S,) -> (B, H, hd).  DTensors (a trainer's or a dry
+    run's mesh) run on each rank's pieces, every (batch, head) pair being
+    independent: the keys and values take the query's placement, as in
+    ``_attend_pieces`` (DTensor's einsum merges the cut batch and heads
+    into one dimension, which torch 2.11 refuses)."""
+    if isinstance(q, DTensor):
+        mesh, qp = q.device_mesh, tuple(q.placements)
+        out = _decode_core(q.to_local(), kk.redistribute(mesh, qp).to_local(),
+                           vv.redistribute(mesh, qp).to_local(), valid)
+        return DTensor.from_local(out, mesh, [
+            Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1 else p
+            for p in qp], run_check=False)
+    hd = q.shape[-1]
+    scores = torch.einsum("bthd,bshd->bhts", q, kk)[:, :, 0] \
+        / score_scale(hd, q.dtype)
+    scores = scores.masked_fill(~valid, NEG_INF)
+    w = _softmax_to(scores, q.dtype)
+    return torch.einsum("bhs,bshd->bhd", w, vv)
 
 
 def cross_attention(p: dict, x: torch.Tensor, kv_src: torch.Tensor,
@@ -228,9 +283,9 @@ def cross_attention(p: dict, x: torch.Tensor, kv_src: torch.Tensor,
     B, T, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     S = kv_src.shape[1]
-    q = (x @ p["wq"]).reshape(B, T, H, hd)
-    k = (kv_src @ p["wk"]).reshape(B, S, KV, hd)
-    v = (kv_src @ p["wv"]).reshape(B, S, KV, hd)
+    q = reshape(x @ p["wq"], B, T, H, hd)
+    k = reshape(kv_src @ p["wk"], B, S, KV, hd)
+    v = reshape(kv_src @ p["wv"], B, S, KV, hd)
     return cached_cross_attention(p, q, k, v)
 
 
@@ -242,5 +297,5 @@ def cached_cross_attention(p: dict, q, k, v) -> torch.Tensor:
     v = _expand_kv(v, H)
     scores = torch.einsum("bthd,bshd->bhts", q, k) / score_scale(hd, q.dtype)
     w = _softmax_to(scores, q.dtype)
-    out = torch.einsum("bhts,bshd->bthd", w, v).reshape(B, T, H * hd)
+    out = reshape(torch.einsum("bhts,bshd->bthd", w, v), B, T, H * hd)
     return out @ p["wo"]

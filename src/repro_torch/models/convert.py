@@ -147,11 +147,11 @@ def copy_leaf_(t: torch.Tensor, value) -> None:
         t.copy_(value)
 
 
-def _flat_items(tree: Mapping, prefix: tuple = ()):
+def flat_items(tree: Mapping, prefix: tuple = ()):
     for name, node in tree.items():
         parts = prefix + tuple(str(name).split("."))
         if isinstance(node, Mapping):
-            yield from _flat_items(node, parts)
+            yield from flat_items(node, parts)
         else:
             yield parts, node
 
@@ -162,7 +162,7 @@ def jax_items(tree: Mapping) -> list[tuple[tuple[str, ...], object]]:
     leaf order (dict keys sorted at every level), a stacked leaf as one
     ``Stacked``."""
     groups: dict = {}
-    for parts, node in _flat_items(tree):
+    for parts, node in flat_items(tree):
         path, idx = jax_leaf_index(parts)
         groups.setdefault(path, {})[idx] = node
     return [(path, m[()] if list(m) == [()] else Stacked(m))

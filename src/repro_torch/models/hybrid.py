@@ -11,13 +11,12 @@ differs from it.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.cuda import resolve_device
 from .attention import init_kv_cache
 from .config import ModelConfig
-from .layers import (TreeModule, cross_entropy_loss, init_dense_,
+from .layers import (TreeModule, cross_entropy_loss, embed_lookup, init_dense_,
                      init_normal_, norm_fn, param, rmsnorm, silu)
 from .mamba import (MambaParams, _causal_conv, _ssm_inputs, mamba_block,
                     mamba_decode_step)
@@ -130,7 +129,7 @@ class HybridLM(CastMixin, nn.Module):
         return self
 
     def _tokens(self, tokens) -> torch.Tensor:
-        return F.embedding(tokens, self.embed).to(self.dtype)
+        return embed_lookup(tokens, self.embed).to(self.dtype)
 
     def _head(self, x) -> torch.Tensor:
         return rmsnorm(x, self.norm_f) @ self._weight("lm_head")

@@ -7,8 +7,12 @@ package read, under the names of the JAX package's parameter tree.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 
 def rmsnorm(x, scale, eps: float = 1e-6):
@@ -69,10 +73,133 @@ class TreeModule(nn.Module):
 def cast_tree(tree: dict, pdtype: torch.dtype, dtype: torch.dtype) -> dict:
     """Every leaf stored in ``pdtype`` cast to ``dtype``; the rest as is.
     With f32 params and bf16 activations this rounds the norm scales and
-    the MoE router too, as the JAX package's layer cast does."""
+    the MoE router too, as the JAX package's layer cast does.  A DTensor
+    leaf is then ``gathered``."""
     return {k: cast_tree(v, pdtype, dtype) if isinstance(v, dict)
-            else v.to(dtype) if v.dtype == pdtype else v
+            else gathered(v.to(dtype) if v.dtype == pdtype else v)
             for k, v in tree.items()}
+
+
+def gathered(w: torch.Tensor) -> torch.Tensor:
+    """A weight as a layer reads it.  A DTensor (a trainer on a
+    ``DistMesh``) is gathered on every mesh axis but ``model``, as FSDP
+    gathers a weight before use (its gradient is reduced and cut back on
+    the way out), so a layer's products cut the batch over the data axes
+    and the weights over ``model`` alone, as JAX's partitioner runs them.
+    Left to itself, DTensor picks each product's placements for the fewest
+    bytes moved, and where the activations are smaller than the weight (a
+    decode step) repeats the product on every rank of ``model``."""
+    if not isinstance(w, DTensor):
+        return w
+    names = w.device_mesh.mesh_dim_names
+    return w.redistribute(w.device_mesh, [
+        p if name == "model" else Replicate()
+        for name, p in zip(names, w.placements)])
+
+
+def embed_lookup(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(tokens, table)``.  A DTensor table (a trainer on a
+    ``DistMesh``) is gathered whole first, as FSDP gathers a weight before
+    use, and the rows come out cut as the ids are: DTensor's own rule for a
+    vocabulary cut (a masked partial sum) fails when the ids are cut over a
+    mesh dimension that also cuts the table's columns, and in the backward
+    when the gradient arrives as a plain partial sum."""
+    if isinstance(table, DTensor):
+        table = table.redistribute(table.device_mesh,
+                                   [Replicate()] * table.device_mesh.ndim)
+    return F.embedding(tokens, table)
+
+
+def reshape(x: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``x.reshape(shape)``.  A DTensor (a trainer on a ``DistMesh``) is
+    first gathered on the dimensions whose cut the reshape cannot carry,
+    and so is its gradient on the way back: DTensor's view rule keeps a
+    cut only where a dimension is split with the cut on its first factor,
+    which the cut divides, or where dimensions are merged with the cut on
+    the first of them alone.  JAX's partitioner reshards the others, as
+    this does (the heads of qwen2-7b, 28, on a 16-way model axis)."""
+    if not isinstance(x, DTensor):
+        return x.reshape(*shape)
+    new = list(shape)
+    if -1 in new:
+        i = new.index(-1)
+        new[i] = math.prod(x.shape) // math.prod(d for d in new if d != -1)
+    return _Reshape.apply(x, tuple(new))
+
+
+class _Reshape(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.shape = tuple(x.shape)
+        return _carried(x, shape).reshape(shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _carried(grad, ctx.shape).reshape(ctx.shape), None
+
+
+def _carried(x, shape: tuple):
+    """``x`` with every cut that a reshape to ``shape`` cannot carry
+    gathered."""
+    old = tuple(x.shape)
+    cuts: dict = {}
+    for p, n in zip(x.placements, x.device_mesh.shape):
+        if isinstance(p, Shard):
+            cuts[p.dim] = cuts.get(p.dim, 1) * n
+    bad = set()
+    for olds, news in _reshape_groups(old, shape):
+        cut = [d for d in olds if d in cuts]
+        if not cut or (len(olds) == 1 and len(news) == 1):
+            continue
+        if len(olds) == 1 and shape[news[0]] % cuts[olds[0]] == 0:
+            continue                        # split, cut on the first factor
+        if len(news) == 1:                  # merge: keep the first's cut
+            bad.update(d for d in cut if d != olds[0])
+            continue
+        bad.update(cut)
+    if not bad:
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if isinstance(p, Shard) and p.dim in bad else p
+        for p in x.placements])
+
+
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for x (..., K) and w (K, N).  A DTensor ``x`` has its
+    leading dimensions merged by ``reshape`` first: torch's matmul merges
+    them with a view, which DTensor (torch 2.11) refuses when a dimension
+    after the first of them is cut (the positions of qwen2-7b's heads
+    fallback)."""
+    if not isinstance(x, DTensor) or x.ndim <= 2:
+        return x @ w
+    lead = tuple(x.shape[:-1])
+    return reshape(reshape(x, -1, x.shape[-1]) @ w, *lead, w.shape[-1])
+
+
+def _reshape_groups(old: tuple, new: tuple):
+    """(old dims, new dims) groups of equal products that a reshape maps
+    onto each other; dimensions of size 1 join the group before them."""
+    groups, i, j = [], 0, 0
+    while i < len(old) or j < len(new):
+        gi, gj = [], []
+        po = pn = 1
+        while True:
+            if po <= pn and i < len(old):
+                po *= old[i]
+                gi.append(i)
+                i += 1
+            elif j < len(new):
+                pn *= new[j]
+                gj.append(j)
+                j += 1
+            else:
+                break
+            if po == pn and (i == len(old) or old[i] != 1) \
+                    and (j == len(new) or new[j] != 1):
+                break
+        groups.append((gi, gj))
+    return groups
 
 
 def rotary(pos: torch.Tensor, head_dim: int, theta: float) -> tuple:
@@ -129,5 +256,15 @@ def cross_entropy_loss(logits: torch.Tensor,
     (B, T)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return (lse - gold).mean()
+    return (lse - _gold(logits, labels[..., None].long())).mean()
+
+
+def _gold(logits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The logit of each label.  On a DTensor (a trainer on a ``DistMesh``)
+    by a one-hot selection, which is exact (one term a row is not zero):
+    DTensor's rule for ``gather`` along a cut vocabulary fails (its mask
+    assumes two dimensions)."""
+    if isinstance(logits, DTensor):
+        vocab = torch.arange(logits.shape[-1], device=idx.device)
+        return torch.where(idx == vocab, logits, 0.0).sum(-1)
+    return torch.gather(logits, -1, idx)[..., 0]

@@ -14,7 +14,7 @@ import torch.nn.functional as F
 
 from .config import ModelConfig
 from .layers import (TreeModule, divisor_chunk, init_dense_, init_normal_,
-                     param, silu, softplus)
+                     param, reshape, silu, softplus)
 
 
 class MambaParams(TreeModule):
@@ -173,4 +173,4 @@ def mamba_decode_step(p: dict, x: torch.Tensor, state: dict,
     state["conv"].copy_(window[:, 1:])
     y = torch.einsum("bis,bs->bi", h, Cm) + xf * p["D_skip"]
     y = y.to(x.dtype) * silu(gate)
-    return (y @ p["w_out"]).reshape(B, 1, D), state
+    return reshape(y @ p["w_out"], B, 1, D), state

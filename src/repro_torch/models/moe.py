@@ -12,7 +12,7 @@ import torch.nn.functional as F
 
 from ..dist.ctx import constrain
 from .config import ModelConfig
-from .layers import TreeModule, init_dense_, param, silu
+from .layers import TreeModule, init_dense_, param, reshape, silu
 
 
 class MoE(TreeModule):
@@ -55,13 +55,13 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     B, T, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     N = B * T
-    xf = x.reshape(N, D)
+    xf = reshape(x, N, D)
 
     n = min(MOE_GROUP, N)
     while N % n:
         n -= 1
     G = N // n
-    xg = xf.reshape(G, n, D)
+    xg = reshape(xf, G, n, D)
 
     logits = xg.float() @ p["router"].float()                    # (G, n, E)
     probs = torch.softmax(logits, dim=-1)
@@ -72,9 +72,9 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     C = max(1, int(cfg.capacity_factor * n * K / E))
     # position of each (token, k) within its expert queue, per group
     onehot = F.one_hot(gate_idx, E)                              # (G, n, K, E)
-    flat = onehot.reshape(G, n * K, E)
+    flat = reshape(onehot, G, n * K, E)
     pos = torch.cumsum(flat, dim=1) - flat                       # (G, n*K, E)
-    pos = (pos * flat).sum(-1).reshape(G, n, K)
+    pos = reshape((pos * flat).sum(-1), G, n, K)
     keep = pos < C
 
     exp_oh = onehot.to(xf.dtype)                                 # (G, n, K, E)
@@ -91,13 +91,13 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     ye = constrain(torch.einsum("egcf,efd->egcd", h, p["w_down"]),
                    "expert_tokens4")                             # (E, G, c, D)
     y = torch.einsum("gnec,egcd->gnd", combine, ye)
-    return y.reshape(B, T, D)
+    return reshape(y, B, T, D)
 
 
 def moe_aux_loss(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Load-balancing auxiliary loss (Switch-style)."""
     B, T, D = x.shape
-    logits = x.reshape(-1, D).float() @ p["router"].float()
+    logits = reshape(x, -1, D).float() @ p["router"].float()
     probs = torch.softmax(logits, dim=-1)
     frac_tokens = torch.mean(
         F.one_hot(torch.argmax(probs, -1), cfg.n_experts).float(), dim=0)

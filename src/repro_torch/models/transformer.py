@@ -18,7 +18,6 @@ import contextlib
 import functools
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -27,8 +26,9 @@ from ..kernels.cuda import resolve_device
 from .attention import (Attention, attention, decode_attention,
                         init_kv_cache, prefill_attention)
 from .config import ModelConfig
-from .layers import (TreeModule, cast_tree, cross_entropy_loss, init_dense_,
-                     init_normal_, norm_fn, param, rmsnorm, silu)
+from .layers import (TreeModule, cast_tree, cross_entropy_loss, embed_lookup,
+                     gathered, init_dense_, init_normal_, norm_fn, param,
+                     rmsnorm, silu)
 from .moe import MoE, moe_ffn
 
 
@@ -164,7 +164,7 @@ class CastMixin:
     def _weight(self, name: str) -> torch.Tensor:
         if self._cast_once is not None:
             return self._cast_once[name]
-        return getattr(self, name).to(self.dtype)
+        return gathered(getattr(self, name).to(self.dtype))
 
     @contextlib.contextmanager
     def cast_weights(self):
@@ -232,15 +232,15 @@ class DecoderLM(CastMixin, nn.Module):
 
     # ---- embedding / head ----------------------------------------------------
     def _embed_tokens(self, batch) -> torch.Tensor:
-        x = constrain(F.embedding(batch["tokens"], self.embed).to(self.dtype),
-                      "residual")
+        x = constrain(embed_lookup(batch["tokens"], self.embed)
+                      .to(self.dtype), "residual")
         if self.cfg.family == "vlm" and "patch_embeds" in batch:
             # anyres frontend stub: precomputed patch embeddings are prefixed
             x = torch.cat([batch["patch_embeds"].to(self.dtype), x], dim=1)
         return x
 
     def _head(self, x) -> torch.Tensor:
-        w = self.embed.to(self.dtype).T if self.cfg.tie_embeddings \
+        w = gathered(self.embed.to(self.dtype)).T if self.cfg.tie_embeddings \
             else self._weight("lm_head")
         return constrain(x @ w, "logits")
 
@@ -286,7 +286,7 @@ class DecoderLM(CastMixin, nn.Module):
     def decode_step(self, cache, tokens, pos: int):
         """tokens (B,) int; pos the absolute position (int).  Writes the
         token's K/V into ``cache`` in place; returns (logits (B, V), cache)."""
-        x = F.embedding(tokens[:, None], self.embed).to(self.dtype)
+        x = embed_lookup(tokens[:, None], self.embed).to(self.dtype)
         kv = cache["kv"]
         for i, lp in enumerate(map(self._cast_layers,
                                   self._layers("layers"))):

@@ -8,7 +8,6 @@ caches both the self-attention KV and the per-layer cross KV projections."""
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.cuda import resolve_device
@@ -16,7 +15,7 @@ from .attention import (Attention, attention, cached_cross_attention,
                         cross_attention, decode_attention, init_kv_cache,
                         prefill_attention)
 from .config import ModelConfig
-from .layers import (TreeModule, cross_entropy_loss, init_dense_,
+from .layers import (TreeModule, cross_entropy_loss, embed_lookup, init_dense_,
                      init_normal_, norm_fn, param, rmsnorm)
 from .transformer import CastMixin, ffn, make_ffn, norm_scale
 
@@ -96,7 +95,7 @@ class WhisperModel(CastMixin, nn.Module):
         return self
 
     def _tokens(self, tokens) -> torch.Tensor:
-        return F.embedding(tokens, self.embed).to(self.dtype)
+        return embed_lookup(tokens, self.embed).to(self.dtype)
 
     # ---- encoder --------------------------------------------------------------
     def encode(self, audio_embeds) -> torch.Tensor:

@@ -21,7 +21,7 @@ from ..dist.ctx import constrain
 from .attention import score_scale
 from .config import ModelConfig
 from .layers import (TreeModule, divisor_chunk, init_dense_, init_normal_,
-                     log_sigmoid, param, rmsnorm, silu)
+                     log_sigmoid, param, reshape, rmsnorm, silu)
 
 NEG_INF = -1e30
 
@@ -76,11 +76,11 @@ def _mlstm_chunk_scan(q, k, v, log_i, log_f, chunk: int) -> torch.Tensor:
     B, H, T, dk = q.shape
     dv = v.shape[-1]
     nc = T // chunk
-    qc = q.reshape(B, H, nc, chunk, dk)
-    kc = k.reshape(B, H, nc, chunk, dk)
-    vc = v.reshape(B, H, nc, chunk, dv)
-    ic = log_i.reshape(B, H, nc, chunk)
-    csum_f = torch.cumsum(log_f.reshape(B, H, nc, chunk), dim=-1)
+    qc = reshape(q, B, H, nc, chunk, dk)
+    kc = reshape(k, B, H, nc, chunk, dk)
+    vc = reshape(v, B, H, nc, chunk, dv)
+    ic = reshape(log_i, B, H, nc, chunk)
+    csum_f = torch.cumsum(reshape(log_f, B, H, nc, chunk), dim=-1)
     f_total = csum_f[..., -1]                             # (B, H, nc)
     upper = ~torch.ones(chunk, chunk, dtype=torch.bool,
                         device=q.device).tril()
@@ -122,7 +122,7 @@ def _mlstm_chunk_scan(q, k, v, log_i, log_f, chunk: int) -> torch.Tensor:
         n = decay_old[..., None] * n + torch.einsum("bhs,bhsk->bhk", w_new,
                                                     kf)
         m = m_next
-    return torch.stack(outs, dim=2).reshape(B, H, T, dv).to(q.dtype)
+    return reshape(torch.stack(outs, dim=2), B, H, T, dv).to(q.dtype)
 
 
 def _gates(p: dict, xin: torch.Tensor) -> tuple:
@@ -140,13 +140,13 @@ def mlstm_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     di = int(cfg.mlstm_proj_factor * D)
     up = x @ p["w_in"]
     xin, gate = up[..., :di], up[..., di:]
-    xh = xin.reshape(B, T, H, di // H)
+    xh = reshape(xin, B, T, H, di // H)
     q = torch.einsum("bthd,hde->bhte", xh, p["wq"])
     k = torch.einsum("bthd,hde->bhte", xh, p["wk"])
     v = torch.einsum("bthd,hde->bhte", xh, p["wv"])
     log_i, log_f = (g.transpose(1, 2) for g in _gates(p, xin))
     h = _mlstm_chunk_scan(q, k, v, log_i, log_f, divisor_chunk(T, chunk))
-    h = h.transpose(1, 2).reshape(B, T, di)
+    h = reshape(h.transpose(1, 2), B, T, di)
     h = rmsnorm(h, p["norm_scale"])
     h = h * silu(gate)
     return h @ p["w_out"]
@@ -173,7 +173,7 @@ def mlstm_decode_step(p: dict, x: torch.Tensor, state: dict,
     dh = di // H
     up = x[:, 0] @ p["w_in"]
     xin, gate = up[..., :di], up[..., di:]
-    xh = xin.reshape(B, H, dh)
+    xh = reshape(xin, B, H, dh)
     q = torch.einsum("bhd,hde->bhe", xh, p["wq"]) / score_scale(dh, xh.dtype)
     k = torch.einsum("bhd,hde->bhe", xh, p["wk"])
     v = torch.einsum("bhd,hde->bhe", xh, p["wv"])
@@ -190,10 +190,10 @@ def mlstm_decode_step(p: dict, x: torch.Tensor, state: dict,
     num = torch.einsum("bhk,bhkv->bhv", qf, C)
     den = torch.maximum(torch.einsum("bhk,bhk->bh", qf, n).abs(),
                         torch.exp(-m_new))[..., None]
-    h = (num / den).reshape(B, di)
+    h = reshape(num / den, B, di)
     h = rmsnorm(h, p["norm_scale"])
     h = h * silu(gate)
-    return mm(h, p["w_out"]).reshape(B, 1, D).to(x.dtype), state
+    return reshape(mm(h, p["w_out"]), B, 1, D).to(x.dtype), state
 
 
 # --------------------------------------------------------------------------- #

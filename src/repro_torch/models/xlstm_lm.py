@@ -7,12 +7,11 @@ Serving keeps an O(1) recurrent state and no KV cache: ``prefill`` runs
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.cuda import resolve_device
 from .config import ModelConfig
-from .layers import (TreeModule, cross_entropy_loss, init_dense_,
+from .layers import (TreeModule, cross_entropy_loss, embed_lookup, init_dense_,
                      init_normal_, norm_fn, param, rmsnorm)
 from .transformer import CastMixin, norm_scale
 from .xlstm import (MLSTMParams, SLSTMParams, init_mlstm_state,
@@ -85,7 +84,7 @@ class XLSTMLM(CastMixin, nn.Module):
         return self
 
     def _tokens(self, tokens) -> torch.Tensor:
-        return F.embedding(tokens, self.embed).to(self.dtype)
+        return embed_lookup(tokens, self.embed).to(self.dtype)
 
     def _head(self, x) -> torch.Tensor:
         return rmsnorm(x, self.norm_f) @ self._weight("lm_head")

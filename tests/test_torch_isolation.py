@@ -53,7 +53,8 @@ def test_importing_the_port_loads_no_jax():
                  "launch.caches", "launch.serve", "launch.train",
                  "launch.mesh", "optim", "optim.adamw", "data",
                  "data.pipeline", "checkpoint", "checkpoint.ckpt", "runtime",
-                 "runtime.fault_tolerance", "dist.compat", "dist.sharding"):
+                 "runtime.fault_tolerance", "dist.compat", "dist.sharding",
+                 "launch.dryrun", "launch.hlo_analysis", "launch.op_flops"):
         assert f"repro_torch.{name}" in res["modules"]
 
 

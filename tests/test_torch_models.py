@@ -364,7 +364,7 @@ def test_constrain_is_identity_without_rules_and_raises_on_a_placement():
         assert constrain(x, "heads") is x
         with activation_sharding_ctx(lambda n, s: "placed") as inner:
             assert current_rules() is inner
-            with pytest.raises(NotImplementedError, match="multi-card"):
+            with pytest.raises(ValueError, match="mesh without devices"):
                 constrain(x, "residual")
         assert constrain(x, "logits") is x
     assert current_rules() is None

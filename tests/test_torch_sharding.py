@@ -244,16 +244,18 @@ def test_constrain_places_the_whole_tensor_on_a_one_device_mesh():
 
 
 def test_constrain_raises_over_an_extent_of_two():
+    """A mesh without devices places nothing: a placement of extent 2 on
+    it raises (on a DistMesh it redistributes, tests/test_torch_dist.py)."""
     mesh = abstract_mesh((2, 1), ("data", "model"))
     rules = make_activation_rules(mesh, get_config("qwen2-7b"))
     x = torch.ones(4, 8, 16)
     with activation_sharding_ctx(rules):
         assert rules("residual", tuple(x.shape)).extent == 2
-        with pytest.raises(NotImplementedError, match="multi-card"):
+        with pytest.raises(ValueError, match="mesh without devices"):
             constrain(x, "residual")
         y = torch.ones(3, 5, 16)        # no dim divides: replicated
         assert constrain(y, "residual") is y
-    with pytest.raises(NotImplementedError, match="DTensor"):
+    with pytest.raises(ValueError, match="DistMesh"):
         NamedSharding(mesh, P()).device
 
 
