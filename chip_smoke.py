@@ -29,7 +29,7 @@ launch the hand-written CUDA kernels with the plan.
    the same pipeline and cache, and again from the file with the memo
    cleared (``conv_compile`` lines: calls, transform steps, lowering, the
    fused GEMM (m, n, k) of a one-call selection, seconds).
-4. Nine phases, each with every launch counter set to 0 just before it
+4. Eleven phases, each with every launch counter set to 0 just before it
    and read just after (one ``launches`` line each):
 
    * ``plan`` — with an empty tuning cache as the default, so the tile is
@@ -144,6 +144,24 @@ launch the hand-written CUDA kernels with the plan.
      ``FakeTensorMode``) for ``DRYRUN_CELLS`` at their published configs:
      one line a cell with its seconds, FLOPs, bytes, collectives, memory,
      roofline terms on ``gpu_sm`` and ``model_flops_ratio``; no K1-K4.
+   * ``servesim`` — the serving simulator (``repro_torch.serve``): the
+     ``ServingPool`` of ``SERVESIM_ARCHS`` x ``SERVESIM_BUCKETS`` (each arch
+     at its trace config, D = 32, fused, compiled against ``gpu_sm(8)``)
+     warmed into a fresh ``ArtifactCache`` under ``build/repro_torch/``,
+     then warmed again from the file with the memo cleared, which must
+     compile nothing fresh (``servesim_warmup`` line); the online, static
+     and frozen schedulers over 512 seeded requests, Poisson at 400/s and
+     then in bursts of 8 (``servesim_run`` lines: the modelled p50, p99,
+     goodput and makespan, from the compiled blocks' simulated makespans,
+     not from the card); then every pool entry executed once on the card
+     (``CompiledGraph.execute``: each ``pallas_gpu_gemm`` node one K1
+     launch, ``simt`` f32 at the compiled plan's tile);
+   * ``cli`` — ``repro_torch.cli.main`` in process for each of
+     ``CLI_RUNS``, each with ``--json`` (one ``cli`` line a run: exit code,
+     seconds, K1 launches): ``compile --suite smoke --validate``, ``graph
+     --validate`` and ``graph --gru --validate`` on the card, ``verify
+     --suite all``, ``verify --mutate`` and ``servesim --compare
+     --verify``.
 
    K1 and K2 run on the main loop their dtype and K take (``wgmma``: bf16
    after one transposing pass of B; ``simt``: f32), with split-K where the
@@ -191,7 +209,11 @@ launch the hand-written CUDA kernels with the plan.
    on ``gpu_sm(8)``, its copies per stream, the bytes of U the recursive
    stream copies, the makespans and ``total_time(128)``, beside K4's
    partition (bytes of U it keeps in shared memory, f32 and bf16) and the
-   f32 sequence time of this run.
+   f32 sequence time of this run.  One ``servesim_entry`` line per pool
+   entry: its nodes, GEMM nodes and K1 launches, every tensor held against
+   the float64 reference as the ``graph`` lines hold the trace blocks
+   (bit-exact throughout), ``execute`` event-timed (5 calls) and its device
+   time by kernel (profiler), beside the entry's modelled makespan.
 6. Prints the ``kernels`` line and, last, the device line.  Exits non-zero,
    before the device line, when a comparison fails, a kernel of a phase was
    never launched in it, a bf16 DeepBench GEMM did not take the wgmma route
@@ -220,8 +242,15 @@ launch the hand-written CUDA kernels with the plan.
    phase's same step by more than ``PLACED_TOL`` relative or a restored
    tensor not equal to the placed one, or a ``dryrun`` cell not ``ok``,
    with no FLOPs or collective bytes, or with one rank's parameter or
-   moment bytes other than the rules' shard shapes give; when there is no
-   card it prints nothing and exits 1.
+   moment bytes other than the rules' shard shapes give, or the second
+   ``servesim`` warmup compiled anything fresh, a ``servesim`` trace has
+   an ``srv.*`` error, the frozen replay drifts from the online run or a
+   request starved, or a pool entry's K1 launches differ from its GEMM
+   nodes or a tensor of it is not bit-exact against the reference, or a
+   ``cli`` run exits other than 0, ``verify --mutate`` catches fewer than
+   all 44 classes or ``graph --validate``'s K1 launches differ from its
+   block's GEMM nodes; when there is no card it prints nothing and exits
+   1.
 
 Inputs: uniform(-1, 1) from ``np.random.default_rng(seed)``; the GRU
 weights are uniform(-1/sqrt(H), 1/sqrt(H)), PyTorch's own GRU init.
@@ -256,7 +285,7 @@ activation's torch op: two launches where there is an activation.  In the
 ``kernels`` line each time sums that kernel's calls over the main path's
 shapes, one call per shape (for K3, one step; K1 at the tuned tile; K3
 and K4 in f32 and bf16 at the DeepBench sizes), and ``launches`` sums the
-seven phases.  A serve run's bounds (``serve_bounds``): for the prefill and
+eleven phases.  A serve run's bounds (``serve_bounds``): for the prefill and
 for one decode step, the larger of the bytes the function must move (the
 weights it needs once in the activation dtype, top_k experts a token, the
 KV cache, the recurrent state) over 3.35 TB/s and its operations (2 x the
@@ -407,6 +436,19 @@ DRYRUN_CELLS = [("olmo-1b", "train_4k", "single"),
                 ("qwen2-7b", "prefill_32k", "single"),
                 ("mixtral-8x7b", "decode_32k", "single"),
                 ("xlstm-1.3b", "long_500k", "single")]
+#: the serving simulator's pool (each arch at its trace config) and traffic
+SERVESIM_ARCHS = ("olmo-1b", "qwen2-7b")
+SERVESIM_BUCKETS = (4, 8, 16)
+SERVESIM_REQUESTS = 512
+SERVESIM_RATE = 400.0
+SERVESIM_BURST = 8
+#: the ``repro-torch`` command lines the cli phase runs in process
+CLI_RUNS = [["compile", "--suite", "smoke", "--validate"],
+            ["graph", "--validate"],
+            ["graph", "--gru", "--validate"],
+            ["verify", "--suite", "all"],
+            ["verify", "--mutate"],
+            ["servesim", "--compare", "--verify"]]
 GEMM_KERNEL = re.compile(r"gemm|xmma|cutlass|nvjet", re.IGNORECASE)
 #: the CLI's restart check: the smoke config, 12 steps, a fault at 6
 TRAIN_CLI = ["--arch", TRAIN_ARCH, "--smoke", "--steps", "12", "--batch",
@@ -1385,6 +1427,189 @@ def run_dryrun(failures: list) -> None:
             dist.destroy_process_group()
         shutil.rmtree(out, ignore_errors=True)
 
+def gemm_nodes(cg) -> int:
+    """The nodes of a compiled graph that run as K1 launches."""
+    return sum(cg.kernels[cg.node_kernels[n.name]].lowering["kind"]
+               == "pallas_gpu_gemm" for n in cg.graph.nodes)
+
+
+def run_servesim(dev, seed: int, failures: list) -> list:
+    """The serving simulator: the (arch x bucket) pool warmed twice through
+    one artifact cache (the second warmup must compile nothing fresh), the
+    online, static and frozen schedulers over ``SERVESIM_REQUESTS`` seeded
+    requests, Poisson and in bursts (every trace clean under ``srv.*``, the
+    frozen replay without drift, nothing starved; their latencies and
+    goodput are modelled), then every pool entry executed once on the card,
+    its K1 launches equal to its GEMM nodes.  Returns the entries with
+    their inputs and outputs, for ``hold_servesim``."""
+    from repro_torch.compile.cache import ArtifactCache
+    from repro_torch.compile.driver import clear_memo
+    from repro_torch.graph import block_inputs
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.gemm import gemm
+    from repro_torch.serve import (FifoOnlineScheduler, ServeParams,
+                                   ServingPool, StaticBatchScheduler,
+                                   generate_requests, make_static_scheduler,
+                                   simulate_serving)
+    from repro_torch.verify import verify_replay, verify_serve_trace
+
+    path = cuda.BUILD_DIR / f"servesim-{os.getpid()}-{time.time_ns()}.json"
+    warm = []
+    for _ in range(2):
+        clear_memo()
+        t0 = time.perf_counter()
+        pool = ServingPool(archs=SERVESIM_ARCHS, buckets=SERVESIM_BUCKETS,
+                           cache=ArtifactCache(str(path)))
+        warm.append({**pool.warmup(), "seconds": time.perf_counter() - t0})
+    for f in (path, path.with_name(path.name + ".lock")):
+        f.unlink(missing_ok=True)
+    emit({"phase": "servesim_warmup", "target": "gpu_sm_x8",
+          "first": warm[0], "second": warm[1]})
+    if not warm[0]["fresh_compiles"] or warm[1]["fresh_compiles"] \
+            or warm[0]["evicted"] or warm[1]["evicted"]:
+        failures.append(f"servesim warmup: {warm[0]['fresh_compiles']} fresh, "
+                        f"then {warm[1]['fresh_compiles']} fresh")
+
+    params = ServeParams()
+    for arrival in ("poisson", "burst"):
+        reqs = generate_requests(SERVESIM_REQUESTS, seed=seed,
+                                 rate=SERVESIM_RATE, arrival=arrival,
+                                 burst_size=SERVESIM_BURST,
+                                 archs=SERVESIM_ARCHS)
+        traces = {}
+        for name, sched in (
+                ("online", FifoOnlineScheduler()),
+                ("static", StaticBatchScheduler()),
+                ("frozen", make_static_scheduler(FifoOnlineScheduler)())):
+            t0 = time.perf_counter()
+            res = simulate_serving(reqs, pool, sched, params)
+            seconds = time.perf_counter() - t0
+            traces[name] = res.trace()
+            errors = [str(d) for d in verify_serve_trace(traces[name])
+                      if d.severity == "error"]
+            drift = [str(d) for d in verify_replay(traces["frozen"],
+                                                   traces["online"])] \
+                if name == "frozen" else []
+            m = res.metrics
+            emit({"phase": "servesim_run", "arrival": arrival,
+                  "scheduler": res.scheduler, "requests": len(reqs),
+                  "rate": SERVESIM_RATE, "params": params.to_dict(),
+                  "completed": m["completed"], "starved": m["starved"],
+                  "iterations": m["iterations"],
+                  "modelled": {k: m[k] for k in (
+                      "p50_latency_s", "p99_latency_s", "goodput_tps",
+                      "makespan_s")},
+                  "srv_errors": errors, "replay_drift": drift,
+                  "host_seconds": seconds})
+            if errors or drift or m["starved"]:
+                failures.append(f"servesim {arrival} {name}: {errors[:3]} "
+                                f"{drift[:3]}, {m['starved']} starved")
+
+    entries = []
+    for (arch, bucket), art in sorted(pool.entries.items()):
+        inputs = {t: torch.from_numpy(v).to(dev)
+                  for t, v in block_inputs(art.cg.graph).items()}
+        before = gemm.launches
+        env = art.cg.execute(inputs, device=dev, return_all=True)
+        entries.append({"art": art, "inputs": inputs, "env": env,
+                        "k1_launches": gemm.launches - before,
+                        "gemm_nodes": gemm_nodes(art.cg)})
+        if entries[-1]["k1_launches"] != entries[-1]["gemm_nodes"]:
+            failures.append(f"servesim {arch}/T{bucket}: "
+                            f"{entries[-1]['k1_launches']} K1 launches for "
+                            f"{entries[-1]['gemm_nodes']} GEMM nodes")
+    return entries
+
+
+def hold_servesim(entries: list, dev, failures: list) -> None:
+    """Each pool entry's tensors against the float64 reference (the trace
+    configs must be bit-exact throughout), its ``execute`` event-timed and
+    its device time by kernel, beside the entry's modelled makespan."""
+    from repro_torch.configs import get_trace_config
+    from repro_torch.models.traceable import block_reference
+
+    for e in entries:
+        art, inputs = e["art"], e["inputs"]
+        cfg = get_trace_config(art.arch)
+        want = block_reference(inputs, cfg, art.bucket, device=dev,
+                               return_all=True)
+        held = hold_graph(e["env"], want)
+        if held["mismatched"] or held["tolerance_tensors"]:
+            failures.append(f"servesim {art.arch}/T{art.bucket}: tensors off "
+                            f"the reference: {held['mismatched']}, "
+                            f"{held['tolerance_tensors']} above 2^24")
+        run = lambda: art.cg.execute(inputs, device=dev)    # noqa: E731
+        emit({"phase": "servesim_entry", "arch": art.arch,
+              "bucket": art.bucket, "graph": art.cg.name,
+              "d_model": cfg.d_model, "nodes": len(art.cg.graph.nodes),
+              "gemm_nodes": e["gemm_nodes"], "k1_launches": e["k1_launches"],
+              "kv_bytes": art.kv_bytes, **held,
+              "modelled_makespan_s": art.makespan,
+              "execute_ms": time_ms(run, 5),
+              "device_ms": device_ms(run, 3, K1_KERNELS, "k1", other=True),
+              "ok": not held["mismatched"]})
+
+
+def run_cli(failures: list) -> None:
+    """``repro_torch.cli.main`` in process for each of ``CLI_RUNS`` (the
+    graph CLI on the card), each with ``--json``; every run must exit 0,
+    ``verify --mutate`` must catch all 44 classes, and ``graph --validate``
+    must launch K1 once for each GEMM node of the block it compiled."""
+    from repro_torch import cli
+    from repro_torch.configs import get_trace_config
+    from repro_torch.graph import compile_graph, fuse_epilogues, trace_block
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.gemm import gemm
+
+    out = cuda.BUILD_DIR / f"cli-{os.getpid()}-{time.time_ns()}"
+    out.mkdir(parents=True, exist_ok=True)
+    try:
+        for argv in CLI_RUNS:
+            path = out / ("_".join(a.strip("-") for a in argv) + ".json")
+            buf = io.StringIO()
+            before = gemm.launches
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                try:
+                    rc = cli.main([*argv, "--json", str(path)])
+                except Exception as e:      # reported, and gated below
+                    rc = repr(e)
+            seconds = time.perf_counter() - t0
+            k1 = gemm.launches - before
+            report = json.loads(path.read_text()) if path.exists() else {}
+            lines = [ln for ln in buf.getvalue().strip().splitlines()
+                     if not ln.startswith("# report:")]
+            row = {"phase": "cli", "argv": argv, "rc": rc,
+                   "seconds": seconds, "k1_launches": k1,
+                   "failures": report.get("failures"),
+                   "last_line": lines[-1] if lines else None}
+            if argv[0] == "graph":
+                row["validated"] = report.get("validated")
+            if argv[0] == "graph" and "--gru" not in argv:
+                g, dec = fuse_epilogues(trace_block(
+                    get_trace_config("olmo-1b"), seq_len=8))
+                row["gemm_nodes"] = gemm_nodes(compile_graph(g, decisions=dec))
+                if k1 != row["gemm_nodes"]:
+                    failures.append(f"cli {' '.join(argv)}: {k1} K1 launches "
+                                    f"for {row['gemm_nodes']} GEMM nodes")
+            if "--mutate" in argv:
+                muts = [r for r in report.get("rows", []) if "mutation" in r]
+                row["mutations_caught"] = sum(r["caught"] for r in muts)
+                row["mutations"] = len(muts)
+                if row["mutations_caught"] != 44 or len(muts) != 44:
+                    failures.append(f"cli verify --mutate: "
+                                    f"{row['mutations_caught']} of "
+                                    f"{len(muts)} caught, not 44 of 44")
+            if argv[0] == "servesim":
+                row["modelled_goodput_tps"] = {
+                    name: r["metrics"]["goodput_tps"]
+                    for name, r in report.get("runs", {}).items()}
+            emit(row)
+            if rc != 0:
+                failures.append(f"cli {' '.join(argv)} exited {rc}")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
 
 def entry(name, source, replaces, count, rs):
     """One kernel's line: times summed over the main path's shapes."""
@@ -2315,6 +2540,12 @@ def main() -> int:
         run_train_placed(dev, args.seed, failures, train)
     with counted("dryrun", ()):
         run_dryrun(failures)
+    with counted("servesim", ("gemm",)):
+        servesim = run_servesim(dev, args.seed, failures)
+    hold_servesim(servesim, dev, failures)
+    del servesim
+    with counted("cli", ("gemm",)):
+        run_cli(failures)
 
     launches = {name: sum(p[name] for p in phase_launches.values())
                 for name in counters}

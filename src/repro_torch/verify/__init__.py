@@ -1,6 +1,5 @@
 """``repro_torch.verify`` — the static analyzer, copied from the JAX
-package's ``repro.verify`` (all but its serving layer and mutation
-harness).
+package's ``repro.verify``.
 
 Each layer emits structured ``Diagnostic`` records (rule id, severity,
 offending op/statement, message) instead of bare exceptions:
@@ -14,13 +13,15 @@ offending op/statement, message) instead of bare exceptions:
      sharded-output partition contract
   5. **graph**     (``gra.*``) — ``repro_torch.graph`` kernel-graph wiring,
      topology, per-node program health, and placement capacity
+  6. **serve**     (``srv.*``) — ``repro_torch.serve`` run traces: KV-aware
+     admission, bucket routing, frozen-replay fidelity, liveness
 
 plus structural checks on cached artifact payloads (``art.*``).
-``diagnostics.RULES`` holds every rule id of the reference, including the
-``srv.*`` rules of the serving layer, which arrives with the serving tier.
 
 ``verify_compile`` is the strict pipeline entry (``VerifyPass``);
-``verify_artifact`` checks a live ``CompiledKernel``.
+``verify_artifact`` checks a live ``CompiledKernel``; the mutation harness
+(``repro_torch.verify.mutate``) proves each rule actually fires, and
+``python -m repro_torch.verify`` (``cli.py``) sweeps the tune suites.
 """
 from __future__ import annotations
 
@@ -33,13 +34,15 @@ from .graph import verify_graph, verify_placement
 from .program import verify_program
 from .schedule import verify_schedule
 from .selection import verify_selection
+from .serve import verify_replay, verify_serve_trace
 
 __all__ = [
     "Diagnostic", "DiagnosticReport", "VerifyError", "RULES", "ERROR",
     "WARNING", "diag", "verify_program", "verify_selection",
     "verify_schedule", "verify_collective", "verify_partition",
     "verify_task_graph", "verify_fabric", "verify_artifact_dict",
-    "verify_graph", "verify_placement", "verify_compile", "verify_artifact",
+    "verify_graph", "verify_placement", "verify_serve_trace",
+    "verify_replay", "verify_compile", "verify_artifact",
 ]
 
 

@@ -624,6 +624,38 @@ def test_trace_block_on_card_bit_exact(cuda_device, fused):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("argv", [[], ["--no-fuse"], ["--seq", "16"]],
+                         ids=["fused", "unfused", "seq16"])
+def test_graph_cli_validate_on_card(cuda_device, tmp_path, capsys, argv):
+    """``python -m repro_torch.graph --validate`` with no ``--device``: the
+    compiled block runs on the card, one K1 launch for each
+    ``pallas_gpu_gemm`` node, bit-exact against the interpreter and the
+    float64 reference."""
+    import json
+    import repro_torch.graph.__main__ as graph_cli
+    from repro_torch.configs import get_trace_config
+    from repro_torch.graph import compile_graph, fuse_epilogues, trace_block
+    seq = int(argv[1]) if argv[:1] == ["--seq"] else 8
+    g = trace_block(get_trace_config("olmo-1b"), seq_len=seq)
+    decisions = []
+    if "--no-fuse" not in argv:
+        g, decisions = fuse_epilogues(g)
+    cg = compile_graph(g, decisions=decisions)
+    gemm_nodes = sum(cg.kernels[cg.node_kernels[n.name]].lowering["kind"]
+                     == "pallas_gpu_gemm" for n in cg.graph.nodes)
+    path = tmp_path / "graph.json"
+    before = gemm.launches
+    assert graph_cli.main([*argv, "--validate", "--json", str(path)]) == 0
+    torch.cuda.synchronize()
+    assert gemm.launches - before == gemm_nodes > 0
+    out = capsys.readouterr().out
+    for check in ("executed-vs-interpreted", "interpreted-vs-reference",
+                  "executed-vs-reference"):
+        assert f"[ok] {check}: bit-exact=True" in out
+    assert json.loads(path.read_text())["validated"] is True
+
+
+@pytest.mark.gpu
 def test_interpret_program_bit_identical_across_runs(cuda_device):
     from repro_torch.core import kernels_ir
     from repro_torch.graph import fuse_epilogues, interpret_program

@@ -54,7 +54,11 @@ def test_importing_the_port_loads_no_jax():
                  "launch.mesh", "optim", "optim.adamw", "data",
                  "data.pipeline", "checkpoint", "checkpoint.ckpt", "runtime",
                  "runtime.fault_tolerance", "dist.compat", "dist.sharding",
-                 "launch.dryrun", "launch.hlo_analysis", "launch.op_flops"):
+                 "launch.dryrun", "launch.hlo_analysis", "launch.op_flops",
+                 "serve", "serve.workload", "serve.scheduler", "serve.bucket",
+                 "serve.simulate", "serve.__main__", "verify.serve",
+                 "verify.mutate", "verify.cli", "verify.__main__",
+                 "compile.__main__", "graph.__main__", "cli"):
         assert f"repro_torch.{name}" in res["modules"]
 
 
