@@ -1,0 +1,4 @@
+"""``device_idle`` in the cells whose judged end-to-end metric is ``p95_ms``
+alone (the host-bound GEMM cells, which report no ``tflops``): the same
+reader."""
+from portbench.metrics.device_idle import read  # noqa: F401
