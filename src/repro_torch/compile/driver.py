@@ -27,12 +27,13 @@ from ..core.approach import Approach, CostModelApproach, GreedyApproach
 from ..core.ir import Program
 from ..core.isel import Selection
 from ..core.sysgraph import SystemGraph, gpu_sm
+from ..telemetry import count, span
 from .artifact import CompiledKernel, CompileError
 from .cache import ArtifactCache, get_default_artifact_cache
 from .keys import (artifact_key, cacheable_approach, program_fingerprint,
                    sysgraph_fingerprint)
 from .pipeline import (CompileContext, LowerPass, MapPass, Pipeline,
-                       SchedulePass, SelectPass, VerifyPass)
+                       SchedulePass, SelectPass, VerifyPass, run_pass)
 
 #: In-process artifact memo: fresh compiles with a reproducible approach are
 #: reused by key.
@@ -74,8 +75,8 @@ def select_program(program: Program, isa=None, allow_transforms: bool = True,
                          approach=approach,
                          isa=list(isa) if isa else I.tpu_isa(),
                          allow_transforms=allow_transforms)
-    MapPass().run(ctx)
-    SelectPass().run(ctx)
+    run_pass(MapPass(), ctx)
+    run_pass(SelectPass(), ctx)
     return ctx.selection
 
 
@@ -160,10 +161,13 @@ def _lookup(program: Program, graph: SystemGraph, approach, backend: str,
     """(key, hit) — the memo is consulted first, then the persistent cache."""
     if not cacheable_approach(approach):
         return None, None
-    key = artifact_key(program, graph, approach, backend, isa,
-                       allow_transforms)
+    with span("compile.key"):
+        key = artifact_key(program, graph, approach, backend, isa,
+                           allow_transforms)
     if memoize and key in _MEMO:
-        return key, _strip(_MEMO[key])
+        count("compile.memo_hit")
+        with span("compile.memo"):
+            return key, _strip(_MEMO[key])
     if cache is not None:
         hit = cache.lookup(key)
         if hit is not None:
@@ -194,8 +198,8 @@ def compile_program(program: Program, graph: SystemGraph | None = None,
                          backend=backend, verify=verify,
                          meta=dict(meta or {}))
     ctx.meta.setdefault("allow_transforms", allow_transforms)
-    MapPass().run(ctx)
-    SelectPass().run(ctx)
+    run_pass(MapPass(), ctx)
+    run_pass(SelectPass(), ctx)
     return _finish(ctx, cache, memoize=use_cache)
 
 
@@ -219,27 +223,32 @@ def compile_selection(selection: Selection, graph: SystemGraph,
 
 def _compile_frontend(frontend: str, fe_args: dict, graph, approach, backend,
                       cache, use_cache, verify: bool = True) -> CompiledKernel:
-    graph = graph if graph is not None else gpu_sm(8)
-    approach = resolve_approach(approach)
-    cache = _resolve_cache(cache, use_cache)
-    # Frontend programs are cheap to rebuild; selections are not — key off
-    # the program (+ the frontend's ISA/transform policy), select on a miss.
-    program, isa, allow_transforms, _sel_builder = \
-        _frontend_program(frontend, fe_args, graph)
-    key, hit = _lookup(program, graph, approach, backend, cache, use_cache,
-                       isa, allow_transforms)
-    if hit is not None:
-        _attach(hit, program, graph, approach, isa, allow_transforms)
-        hit.meta.setdefault("frontend", frontend)
-        hit.meta.setdefault("frontend_args", dict(fe_args))
-        return hit
-    ctx = CompileContext(program=program, graph=graph, approach=approach,
-                         isa=isa, allow_transforms=allow_transforms,
-                         backend=backend, verify=verify,
-                         meta={"frontend": frontend,
-                               "frontend_args": dict(fe_args)})
-    ctx.selection = _sel_builder()
-    return _finish(ctx, cache, memoize=use_cache)
+    with span("compile." + frontend):
+        if graph is None:
+            with span("compile.graph"):
+                graph = gpu_sm(8)
+        approach = resolve_approach(approach)
+        cache = _resolve_cache(cache, use_cache)
+        # Frontend programs are cheap to rebuild; selections are not — key
+        # off the program (+ the frontend's ISA/transform policy), select on
+        # a miss.
+        with span("compile.program"):
+            program, isa, allow_transforms, _sel_builder = \
+                _frontend_program(frontend, fe_args, graph)
+        key, hit = _lookup(program, graph, approach, backend, cache,
+                           use_cache, isa, allow_transforms)
+        if hit is not None:
+            _attach(hit, program, graph, approach, isa, allow_transforms)
+            hit.meta.setdefault("frontend", frontend)
+            hit.meta.setdefault("frontend_args", dict(fe_args))
+            return hit
+        ctx = CompileContext(program=program, graph=graph, approach=approach,
+                             isa=isa, allow_transforms=allow_transforms,
+                             backend=backend, verify=verify,
+                             meta={"frontend": frontend,
+                                   "frontend_args": dict(fe_args)})
+        ctx.selection = _sel_builder()
+        return _finish(ctx, cache, memoize=use_cache)
 
 
 def _frontend_program(frontend: str, fe_args: dict, graph: SystemGraph):
@@ -373,11 +382,12 @@ def compile_fabric(kernel: str, shape: tuple[int, ...], topo,
 
 def _attach(art: CompiledKernel, program, graph, approach, isa,
             allow_transforms: bool) -> None:
-    art.program = program
-    art.graph = graph
-    art.approach = approach
-    art.isa = list(isa) if isa else None
-    art.meta.setdefault("allow_transforms", allow_transforms)
+    with span("compile.memo"):
+        art.program = program
+        art.graph = graph
+        art.approach = approach
+        art.isa = list(isa) if isa else None
+        art.meta.setdefault("allow_transforms", allow_transforms)
 
 
 def recompile_schedule(art: CompiledKernel) -> None:
@@ -413,7 +423,7 @@ def recompile_schedule(art: CompiledKernel) -> None:
     ctx = CompileContext(program=art.program, graph=art.graph,
                          approach=art.approach, backend=art.backend)
     ctx.selection = art.selection
-    SchedulePass().run(ctx)
+    run_pass(SchedulePass(), ctx)
     art.schedule = ctx.schedule
 
 

@@ -29,6 +29,7 @@ from ..core.isel import (Selection, candidate_instructions,
                          select_from_candidates)
 from ..core.scheduler import Schedule, ScheduleError, schedule
 from ..core.sysgraph import SystemGraph
+from ..telemetry import count, span
 from .artifact import CompiledKernel, CompileError, InstrPlan
 from .keys import (approach_fingerprint, artifact_key_from_parts,
                    isa_fingerprint, program_fingerprint, sysgraph_fingerprint)
@@ -62,6 +63,13 @@ class Pass:
 
     def run(self, ctx: CompileContext) -> None:  # pragma: no cover - abstract
         raise NotImplementedError
+
+
+def run_pass(p: Pass, ctx: CompileContext) -> None:
+    """Run one pass under its span, ``compile.<name>``: the one place every
+    caller of a pass goes through."""
+    with span("compile." + p.name):
+        p.run(ctx)
 
 
 class MapPass(Pass):
@@ -216,11 +224,12 @@ class Pipeline:
     passes: tuple = DEFAULT_PASSES
 
     def run(self, ctx: CompileContext) -> CompiledKernel:
+        count("compile.fresh")
         approach = ctx.approach if ctx.approach is not None else GreedyApproach()
         ctx.approach = approach
         try:
             for p in self.passes:
-                p.run(ctx)
+                run_pass(p, ctx)
         except ScheduleError as e:
             raise CompileError(str(e)) from e
         return self.assemble(ctx)

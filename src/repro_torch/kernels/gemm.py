@@ -41,6 +41,7 @@ from dataclasses import dataclass
 import torch
 
 from ..core.sysgraph import GPU_SMS_PER_CLUSTER
+from ..telemetry import span
 from .cuda import check, library, ptxas_report, stream_handle
 from .ref import gemm_bias_act_ref, gemm_ref
 
@@ -261,6 +262,11 @@ class Counter:
 gemm_transpose = Counter()
 gemm_reduce = Counter()
 
+#: the spans of one K1 or K2 launch, by the wrapper's name: its allocation
+#: and its C call
+_SPANS = {"gemm": ("k1.alloc", "k1.call"),
+          "gemm_bias_act": ("k2.alloc", "k2.call")}
+
 
 def _check_tile(tile, route: Route) -> tuple[int, int, int]:
     bm, bn, bk = (int(t) for t in tile)
@@ -314,19 +320,22 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor,
     dev = a.device
     out_dtype = out_dtype or a.dtype
     split = split_k(m, n, k, tile, device_sms(dev))
-    c = torch.empty((m, n), dtype=out_dtype, device=dev)
     bt_bytes = -(-2 * n * k // 256) * 256 if route is WGMMA else 0
     ws_bytes = 4 * split * m * n if split > 1 else 0
-    scratch = torch.empty(bt_bytes + ws_bytes, dtype=torch.uint8, device=dev) \
-        if bt_bytes + ws_bytes else None
+    alloc, call = _SPANS[name]
+    with span(alloc):
+        c = torch.empty((m, n), dtype=out_dtype, device=dev)
+        scratch = torch.empty(bt_bytes + ws_bytes, dtype=torch.uint8,
+                              device=dev) if bt_bytes + ws_bytes else None
     base = scratch.data_ptr() if scratch is not None else 0
-    check(_kernel()(
-        DTYPES[a.dtype], DTYPES[out_dtype], route.code, *tile, split,
-        a.data_ptr(), b.data_ptr(),
-        base if bt_bytes else None,
-        None if bias is None else bias.data_ptr(), ACTS[fn], c.data_ptr(),
-        base + bt_bytes if ws_bytes else None, m, n, k, stream_handle(dev)),
-        name)
+    with span(call):
+        check(_kernel()(
+            DTYPES[a.dtype], DTYPES[out_dtype], route.code, *tile, split,
+            a.data_ptr(), b.data_ptr(),
+            base if bt_bytes else None,
+            None if bias is None else bias.data_ptr(), ACTS[fn],
+            c.data_ptr(), base + bt_bytes if ws_bytes else None, m, n, k,
+            stream_handle(dev)), name)
     gemm_transpose.launches += route is WGMMA
     gemm_reduce.launches += split > 1
     return c
@@ -335,10 +344,12 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor,
 def gemm(a: torch.Tensor, b: torch.Tensor,
          tile: tuple[int, int, int] | None = None) -> torch.Tensor:
     """C = A @ B for A (M, K) and B (K, N) of one dtype, f32 or bf16."""
-    route, tile = _check_operands("gemm", a, b, tile)
-    if a.device.type == "cpu":
-        return gemm_ref(a, b)
-    c = _launch("gemm", a, b, None, "", route, tile)
+    with span("k1"):
+        with span("k1.check"):
+            route, tile = _check_operands("gemm", a, b, tile)
+        if a.device.type == "cpu":
+            return gemm_ref(a, b)
+        c = _launch("gemm", a, b, None, "", route, tile)
     gemm.launches += 1
     return c
 
@@ -363,20 +374,24 @@ def projection(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
 
 def _bias_act(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor, fn: str,
               tile, out_dtype: torch.dtype) -> torch.Tensor:
-    if fn not in ACTS:
-        raise ValueError(f"gemm_bias_act activation {fn!r}: need one of "
-                         f"{list(ACTS)}")
-    route, tile = _check_operands("gemm_bias_act", a, b, tile)
-    n = b.shape[1]
-    if bias.shape != (n,) or bias.dtype not in (torch.float32, a.dtype) \
-            or bias.device != a.device:
-        raise ValueError(f"gemm_bias_act bias {tuple(bias.shape)} "
-                         f"{bias.dtype} on {bias.device}: need ({n},) in "
-                         f"float32 or {a.dtype} on {a.device}")
-    if a.device.type == "cpu":
-        return gemm_bias_act_ref(a, b, bias, fn, out_dtype)
-    c = _launch("gemm_bias_act", a, b, bias.float().contiguous(), fn, route,
-                tile, out_dtype)
+    with span("k2"):
+        with span("k2.check"):
+            if fn not in ACTS:
+                raise ValueError(f"gemm_bias_act activation {fn!r}: need "
+                                 f"one of {list(ACTS)}")
+            route, tile = _check_operands("gemm_bias_act", a, b, tile)
+            n = b.shape[1]
+            if bias.shape != (n,) \
+                    or bias.dtype not in (torch.float32, a.dtype) \
+                    or bias.device != a.device:
+                raise ValueError(f"gemm_bias_act bias {tuple(bias.shape)} "
+                                 f"{bias.dtype} on {bias.device}: need "
+                                 f"({n},) in float32 or {a.dtype} on "
+                                 f"{a.device}")
+        if a.device.type == "cpu":
+            return gemm_bias_act_ref(a, b, bias, fn, out_dtype)
+        c = _launch("gemm_bias_act", a, b, bias.float().contiguous(), fn,
+                    route, tile, out_dtype)
     gemm_bias_act.launches += 1
     return c
 

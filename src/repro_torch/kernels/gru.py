@@ -47,6 +47,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..telemetry import span
 from .cuda import (MAX_SMEM_BYTES, check, library, resolve_device,
                    stream_handle)
 from .gemm import DTYPES, H100_SMS, Counter, device_sms, projection
@@ -388,31 +389,38 @@ def gru_cell(x: torch.Tensor, h: torch.Tensor, params: dict,
              out: torch.Tensor | None = None) -> torch.Tensor:
     """One fused GRU step: x (B, E), h (B, H) -> h' (B, H).  ``out``, when
     given, receives h' and must not be ``h``'s storage."""
-    bb, bh = _check_tile(tile)
-    _check_operands(x, h, params)
-    if x.device.type == "cpu":
-        return gru_cell_ref(x, h, params)
-    if out is None:
-        out = torch.empty_like(h)
-    elif out.shape != h.shape or out.dtype != h.dtype \
-            or out.device != h.device or not out.is_contiguous():
-        raise ValueError("gru_cell out must be a contiguous tensor like h")
-    if out.data_ptr() == h.data_ptr():
-        raise ValueError("gru_cell out must not alias h")
-    B, E = x.shape
-    H = h.shape[1]
-    weights = [params[n] for n in PARAM_NAMES[:6]]
-    aligned = all(t.data_ptr() % (4 * x.element_size()) == 0
-                  for t in (x, h, *weights))
-    route = step_route(E, H, aligned)
-    split = device_split(B, E, H, (bb, bh), x.device, route, x.dtype)
-    part = torch.empty(4 * split * B * H, device=x.device) \
-        if split > 1 else None
-    check(_step_kernel()(
-        DTYPES[x.dtype], bb, bh, route == "vec4", split, x.data_ptr(),
-        h.data_ptr(), *(params[n].data_ptr() for n in PARAM_NAMES),
-        out.data_ptr(), None if part is None else part.data_ptr(), B, E, H,
-        stream_handle(x.device)), "gru_cell")
+    with span("k3"):
+        with span("k3.check"):
+            bb, bh = _check_tile(tile)
+            _check_operands(x, h, params)
+            if out is not None and x.device.type != "cpu":
+                if out.shape != h.shape or out.dtype != h.dtype \
+                        or out.device != h.device or not out.is_contiguous():
+                    raise ValueError("gru_cell out must be a contiguous "
+                                     "tensor like h")
+                if out.data_ptr() == h.data_ptr():
+                    raise ValueError("gru_cell out must not alias h")
+        if x.device.type == "cpu":
+            return gru_cell_ref(x, h, params)
+        B, E = x.shape
+        H = h.shape[1]
+        weights = [params[n] for n in PARAM_NAMES[:6]]
+        aligned = all(t.data_ptr() % (4 * x.element_size()) == 0
+                      for t in (x, h, *weights))
+        route = step_route(E, H, aligned)
+        split = device_split(B, E, H, (bb, bh), x.device, route, x.dtype)
+        with span("k3.alloc"):
+            if out is None:
+                out = torch.empty_like(h)
+            part = torch.empty(4 * split * B * H, device=x.device) \
+                if split > 1 else None
+        with span("k3.call"):
+            check(_step_kernel()(
+                DTYPES[x.dtype], bb, bh, route == "vec4", split,
+                x.data_ptr(), h.data_ptr(),
+                *(params[n].data_ptr() for n in PARAM_NAMES),
+                out.data_ptr(), None if part is None else part.data_ptr(),
+                B, E, H, stream_handle(x.device)), "gru_cell")
     gru_cell.launches += 1
     gru_cell_reduce.launches += split > 1
     return out
@@ -431,24 +439,27 @@ def gru_seq(xs: torch.Tensor, h0: torch.Tensor, params: dict,
     ``proj_tile`` (``None``: its tuned or default tile), then the persistent
     recurrence kernel runs at ``gru_seq_launch``: one launch for B <= 64.
     ``step``: ``gru_seq_steps``, T launches of K3 at ``step_tile``."""
-    if xs.dim() != 3 or xs.shape[0] == 0:
-        raise ValueError(f"gru_seq xs {tuple(xs.shape)}: want [T>0, B, E]")
-    _check_operands(xs[0], h0, params)
-    T, B, E = xs.shape
-    H = h0.shape[1]
-    cpu = xs.device.type == "cpu"
-    sms = H100_SMS if cpu else device_sms(xs.device)
-    smem = MAX_SMEM_BYTES if cpu else device_smem(xs.device)
-    if seq_route(B, E, H, xs.dtype, sms, smem) == "step":
-        return gru_seq_steps(xs, h0, params, step_tile)
-    if cpu:
-        return gru_seq_hoisted_ref(xs, h0, params)
-    if not xs.is_contiguous():
-        raise ValueError("gru_seq needs a contiguous xs")
-    launch = gru_seq_launch(B, E, H, sms, smem, xs.dtype)
-    w, bias = pack_w(params)
-    g = projection(xs.view(T * B, E), w, bias, tile=proj_tile)
-    return _recurrence(g, h0, params, launch)
+    with span("k4"):
+        if xs.dim() != 3 or xs.shape[0] == 0:
+            raise ValueError(f"gru_seq xs {tuple(xs.shape)}: want "
+                             f"[T>0, B, E]")
+        _check_operands(xs[0], h0, params)
+        T, B, E = xs.shape
+        H = h0.shape[1]
+        cpu = xs.device.type == "cpu"
+        sms = H100_SMS if cpu else device_sms(xs.device)
+        smem = MAX_SMEM_BYTES if cpu else device_smem(xs.device)
+        if seq_route(B, E, H, xs.dtype, sms, smem) == "step":
+            return gru_seq_steps(xs, h0, params, step_tile)
+        if cpu:
+            return gru_seq_hoisted_ref(xs, h0, params)
+        if not xs.is_contiguous():
+            raise ValueError("gru_seq needs a contiguous xs")
+        launch = gru_seq_launch(B, E, H, sms, smem, xs.dtype)
+        with span("k4.pack_w"):
+            w, bias = pack_w(params)
+        g = projection(xs.view(T * B, E), w, bias, tile=proj_tile)
+        return _recurrence(g, h0, params, launch)
 
 
 def gru_seq_steps(xs: torch.Tensor, h0: torch.Tensor, params: dict,
@@ -481,23 +492,26 @@ def _recurrence(g: torch.Tensor, h0: torch.Tensor, params: dict,
     B, H = h0.shape
     T = g.shape[0] // B
     dev = h0.device
-    upack = pack_u(params, launch)
-    out = torch.empty_like(h0)
+    with span("k4.pack_u"):
+        upack = pack_u(params, launch)
     rows = min(B, launch.batch)
     esize = h0.element_size()
     # the two hidden-state buffers of a group, then the barrier's counter
     buf_bytes = -(-2 * rows * H * esize // 16) * 16
-    scratch = torch.empty(buf_bytes + 16, dtype=torch.uint8, device=dev)
+    with span("k4.alloc"):
+        out = torch.empty_like(h0)
+        scratch = torch.empty(buf_bytes + 16, dtype=torch.uint8, device=dev)
     for b0 in range(0, B, rows):
         nb = min(rows, B - b0)
         vec = H % (16 // esize) == 0 and h0[b0].data_ptr() % 16 == 0
-        check(_seq_kernel()(
-            DTYPES[h0.dtype], int(vec), launch.blocks, launch.cols,
-            launch.rows_on_chip, launch.lanes, launch.smem_bytes,
-            g[b0].data_ptr(), h0[b0].data_ptr(), upack.data_ptr(),
-            params["bnh"].data_ptr(), scratch.data_ptr(), out[b0].data_ptr(),
-            scratch.data_ptr() + buf_bytes, T, nb, B, H, launch.hp,
-            stream_handle(dev)), "gru_seq")
+        with span("k4.call"):
+            check(_seq_kernel()(
+                DTYPES[h0.dtype], int(vec), launch.blocks, launch.cols,
+                launch.rows_on_chip, launch.lanes, launch.smem_bytes,
+                g[b0].data_ptr(), h0[b0].data_ptr(), upack.data_ptr(),
+                params["bnh"].data_ptr(), scratch.data_ptr(),
+                out[b0].data_ptr(), scratch.data_ptr() + buf_bytes, T, nb, B,
+                H, launch.hp, stream_handle(dev)), "gru_seq")
         gru_seq.launches += 1
     return out
 

@@ -27,12 +27,12 @@ import torch
 
 from ..compile import CompileError, compile_gemm, compile_gru
 from ..core.sysgraph import GPU_SMS_PER_CLUSTER, SystemGraph
+from ..telemetry import span
 from .cuda import MAX_SMEM_BYTES
 from .gemm import (Launch, Route, clamp_choice, gemm, gemm_bias_act,
                    gemm_launch, gemm_route, operand_route, pow2_at_least,
                    route_tile, tuned_block, tuned_record)
 from .gru import TILE_B, TILE_H, gru_cell, gru_seq
-
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -101,16 +101,22 @@ def plan_gemm(m: int, n: int, k: int, dtype: torch.dtype = torch.float32,
     before a ``cost`` one's, clamped to the problem) becomes the launch, and
     its modeled cost is returned as recorded.  The lookup happens on every
     call, so activating a cache mid-process takes effect at once."""
-    rec = tuned_record(m, n, k, graph) if use_cache else None
-    if rec is not None:
-        from ..search.cache import clamp_tile
-        block = clamp_tile(rec.tile, m, n, k)
-        lowering = {"kind": "pallas_gpu_gemm", "block": list(block),
-                    "grid": [_cdiv(e, b) for e, b in zip((m, n, k), block)]}
-        return launch_config(lowering, dtype, (m, n, k), route), rec.cost
-    art = compile_gemm(m, n, k, approach=approach, graph=graph,
-                       use_cache=use_cache)
-    return launch_config(art.lowering, dtype, (m, n, k), route), art.cost
+    with span("ops.plan"):
+        with span("plan.tuned"):
+            rec = tuned_record(m, n, k, graph) if use_cache else None
+        if rec is not None:
+            from ..search.cache import clamp_tile
+            block = clamp_tile(rec.tile, m, n, k)
+            lowering = {"kind": "pallas_gpu_gemm", "block": list(block),
+                        "grid": [_cdiv(e, b) for e, b in zip((m, n, k),
+                                                             block)]}
+            cost = rec.cost
+        else:
+            art = compile_gemm(m, n, k, approach=approach, graph=graph,
+                               use_cache=use_cache)
+            lowering, cost = art.lowering, art.cost
+        with span("plan.launch"):
+            return launch_config(lowering, dtype, (m, n, k), route), cost
 
 
 def plan_gru(batch: int, hidden: int, inp: int | None = None,
@@ -120,13 +126,15 @@ def plan_gru(batch: int, hidden: int, inp: int | None = None,
     (bb, bh) batch/hidden tile of its matmul stage + the modeled seconds.
     Raises ``CompileError`` if no matmul-shaped instruction was
     selected."""
-    art = compile_gru(batch, hidden, inp, approach=approach, graph=graph)
-    for prefix in ("fused.matmul", "mxu.matmul"):
-        try:
-            plan = art.instr_plan(prefix)
-            return (plan.tile_for("i"), plan.tile_for("j")), art.cost
-        except CompileError:
-            continue
+    with span("ops.plan"):
+        art = compile_gru(batch, hidden, inp, approach=approach, graph=graph)
+        with span("plan.launch"):
+            for prefix in ("fused.matmul", "mxu.matmul"):
+                try:
+                    plan = art.instr_plan(prefix)
+                    return (plan.tile_for("i"), plan.tile_for("j")), art.cost
+                except CompileError:
+                    continue
     raise CompileError(
         f"GRU selection contains no matmul-shaped instruction "
         f"(have: {[p.needle for p in art.instrs]})")
@@ -137,11 +145,12 @@ def scheduled_gemm(a: torch.Tensor, b: torch.Tensor,
                    ) -> tuple[torch.Tensor, LaunchConfig]:
     """GEMM whose tile was chosen by the compilation driver; returns the
     product and the launch (compiler block and CUDA tile)."""
-    m, k = a.shape
-    _, n = b.shape
-    cfg, _ = plan_gemm(m, n, k, dtype=a.dtype, graph=graph,
-                       route=operand_route(a, b))
-    return gemm(a, b, tile=cfg.tile), cfg
+    with span("ops.gemm"):
+        m, k = a.shape
+        _, n = b.shape
+        cfg, _ = plan_gemm(m, n, k, dtype=a.dtype, graph=graph,
+                           route=operand_route(a, b))
+        return gemm(a, b, tile=cfg.tile), cfg
 
 
 def scheduled_gru(xs: torch.Tensor, h0: torch.Tensor, gru,
@@ -152,13 +161,14 @@ def scheduled_gru(xs: torch.Tensor, h0: torch.Tensor, gru,
     ``plan_gemm`` gives: the tuning cache's record where there is one, else
     the compilation driver's plan.  On its step route K3 runs each step at
     the tile of the compiler's GRU plan (``gru_tile``)."""
-    steps, batch, inp = xs.shape
-    hidden = h0.shape[1]
-    cfg, _ = plan_gemm(steps * batch, 3 * hidden, inp, dtype=xs.dtype,
-                       graph=graph)
-    block, _ = plan_gru(batch, hidden, inp, graph=graph)
-    return gru_seq(xs, h0, gru.params(), proj_tile=cfg.tile,
-                   step_tile=gru_tile(block))
+    with span("ops.gru"):
+        steps, batch, inp = xs.shape
+        hidden = h0.shape[1]
+        cfg, _ = plan_gemm(steps * batch, 3 * hidden, inp, dtype=xs.dtype,
+                           graph=graph)
+        block, _ = plan_gru(batch, hidden, inp, graph=graph)
+        return gru_seq(xs, h0, gru.params(), proj_tile=cfg.tile,
+                       step_tile=gru_tile(block))
 
 
 __all__ = [

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.sysgraph import gpu_sm
 from repro_torch.kernels import ref
 from repro_torch.kernels.gemm import (ACTS, block_tile, device_sms, gemm,
@@ -494,6 +495,127 @@ def test_slice_on_card(cuda_device):
                            {n: to_torch(v) for n, v in p.items()})
     np.testing.assert_allclose(as_f32(got), as_f32(want), rtol=1e-4,
                                atol=1e-5)
+
+
+#: DeepBench GEMMs of the clock test: a wide one, one with split-K and
+#: the 35-row one
+CLOCK_SHAPES = [(1760, 128, 1760), (2560, 64, 2560), (35, 700, 2048)]
+K1_KERNELS = ("transpose_kernel", "simt_kernel", "wgmma_kernel",
+              "reduce_kernel")
+#: the most a call's first K1 kernel may start after its ``k1.call`` span
+#: starts, in us.  On an H100 80GB HBM3 (700 W) over 150 calls a dtype the
+#: C entry took a median 36 us (f32) and 20 us (bf16) from the span's start
+#: to the kernel's, 71 and 87 us at the 99th percentile and at most 104 and
+#: 135 us.  200 us leaves room for a busy host; that every kernel lies
+#: between its call's span and the next call's holds the two clocks
+#: together to within one waited-for call
+LAUNCH_LIMIT_US = 200.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+def test_span_clock_is_the_device_traces_on_card(cuda_device, tdt):
+    """The recorder's spans and the profiler's trace share a clock: every
+    K1 launch the trace records on the host lies inside its ``k1.call``
+    span; the trace's device times are its host times shifted by one
+    offset (``device_offset_bounds_ns`` finds lo <= hi); and shifted, each
+    call's K1 kernels start at or after its span starts and end before the
+    next call's starts (each call is waited for), the first within
+    ``LAUNCH_LIMIT_US`` in 99% of calls after the first round, whose first
+    launch pays the profiler's set-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(11)
+    operands = [(to_torch(rand(rng, (m, k)), tdt, cuda_device),
+                 to_torch(rand(rng, (k, n)), tdt, cuda_device))
+                for m, n, k in CLOCK_SHAPES]
+    for a, b in operands:                          # the memo, the library
+        scheduled_gemm(a, b)
+    torch.cuda.synchronize()
+    with telemetry.recording() as rec:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(51):
+                for a, b in operands:
+                    scheduled_gemm(a, b)
+                    torch.cuda.synchronize()
+    results = prof.profiler.kineto_results
+    start = results.trace_start_ns()
+    events = results.events()
+    lo, hi = telemetry.device_offset_bounds_ns(events)
+    assert lo <= hi, (lo, hi)
+    shift = (lo + hi) / 2
+
+    def us(t_ns):
+        return (t_ns - start) / 1e3
+    calls = [(telemetry.to_profiler_us(s.start_ns, start),
+              telemetry.to_profiler_us(s.end_ns, start))
+             for s in rec.spans() if s.name == "k1.call"]
+    assert rec.dropped == 0 and len(calls) == 153
+    host = {e.correlation_id(): e for e in events
+            if e.device_type() == DeviceType.CPU and e.correlation_id()}
+    firsts = {}
+    for k in events:
+        if k.device_type() != DeviceType.CUDA \
+                or not any(n in k.name() for n in K1_KERNELS):
+            continue
+        launch = host.get(k.correlation_id())
+        if launch is None:                     # a record the profiler lost
+            continue
+        opened = [i for i, (s, _) in enumerate(calls)
+                  if s <= us(launch.start_ns())]
+        assert opened, us(launch.start_ns())
+        j = opened[-1]
+        assert us(launch.end_ns()) <= calls[j][1], (j, calls[j])
+        nxt = calls[j + 1][0] if j + 1 < len(calls) else float("inf")
+        ks, ke = us(k.start_ns() - shift), us(k.end_ns() - shift)
+        assert calls[j][0] <= ks and ke <= nxt, (j, calls[j], ks, ke, nxt)
+        firsts[j] = min(firsts.get(j, ks), ks)
+    assert len(firsts) >= 0.99 * len(calls)
+    delays = [firsts[j] - calls[j][0] for j in firsts if j >= len(operands)]
+    late = [d for d in delays if d > LAUNCH_LIMIT_US]
+    assert len(late) <= 0.01 * len(delays), sorted(delays)[-5:]
+
+
+@pytest.mark.gpu
+def test_span_tree_of_each_path_on_card(cuda_device):
+    """On the card every entry records the spans of its launch path, and
+    the counters read the launches it made."""
+    rng = np.random.default_rng(12)
+    bf = torch.bfloat16
+    a = to_torch(rand(rng, (256, 512)), bf, cuda_device)
+    b = to_torch(rand(rng, (512, 128)), bf, cuda_device)
+    p = make_gru_params(rng, 64, 64)
+    model = FusedGRU.from_numpy(p, device=cuda_device, dtype=bf)
+    xs = to_torch(rand(rng, (4, 8, 64)), bf, cuda_device)
+    h0 = to_torch(rand(rng, (8, 64)), bf, cuda_device)
+    scheduled_gemm(a, b)
+    scheduled_gru(xs, h0, model)
+    torch.cuda.synchronize()
+    before = telemetry.counters()
+    with telemetry.recording() as rec:
+        scheduled_gemm(a, b)
+        scheduled_gru(xs, h0, model)
+        gru_cell(xs[0], h0, model.params())
+    torch.cuda.synchronize()
+    after = telemetry.counters()
+    spans = rec.spans()
+    below = {}
+    for s in spans:
+        key = spans[s.parent].name if s.parent >= 0 else None
+        below.setdefault(key, []).append(s.name)
+    assert below[None] == ["ops.gemm", "ops.gru", "k3"]
+    assert below["ops.gemm"] == ["ops.plan", "k1"]
+    assert below["ops.gru"] == ["ops.plan", "ops.plan", "k4"]
+    assert below["k1"] == ["k1.check", "k1.alloc", "k1.call"]
+    assert below["k4"] == ["k4.pack_w", "k2", "k4.pack_u", "k4.alloc",
+                           "k4.call"]
+    assert below["k2"] == ["k2.check", "k2.alloc", "k2.call"]
+    assert below["k3"] == ["k3.check", "k3.alloc", "k3.call"]
+    assert [s.request for s in spans if s.parent < 0] == [0, 1, 2]
+    got = {k: after[k] - before[k] for k in after}
+    assert got["compile.memo_hit"] == 3 and got["compile.fresh"] == 0
+    assert got["gemm.launches"] == got["gemm_bias_act.launches"] == 1
+    assert got["gru_seq.launches"] == got["gru_cell.launches"] == 1
 
 
 @pytest.mark.gpu

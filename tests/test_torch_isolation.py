@@ -58,7 +58,7 @@ def test_importing_the_port_loads_no_jax():
                  "serve", "serve.workload", "serve.scheduler", "serve.bucket",
                  "serve.simulate", "serve.__main__", "verify.serve",
                  "verify.mutate", "verify.cli", "verify.__main__",
-                 "compile.__main__", "graph.__main__", "cli"):
+                 "compile.__main__", "graph.__main__", "cli", "telemetry"):
         assert f"repro_torch.{name}" in res["modules"]
 
 
