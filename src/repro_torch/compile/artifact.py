@@ -123,12 +123,13 @@ class CompiledKernel:
     def ensure_schedule(self):
         """Materialize the selection/schedule for this artifact.  Fresh
         compiles carry them already; cache-hydrated artifacts re-run the
-        (deterministic) pipeline from the attached program/graph/approach."""
+        (deterministic) pipeline from the attached program/graph/approach
+        (no graph: the default target, built on demand)."""
         if self.schedule is not None:
             return self.schedule
-        if self.program is None or self.graph is None:
+        if self.program is None:
             raise CompileError(
-                "cache-hydrated artifact has no program/graph attached; "
+                "cache-hydrated artifact has no program attached; "
                 "re-compile through the driver to replay its schedule")
         from .driver import recompile_schedule
         recompile_schedule(self)

@@ -11,11 +11,18 @@ topology and returns an artifact carrying the distributed plan; and
 incrementally.
 
 Every entry produces (or replays) a ``CompiledKernel``.  Fresh compiles are
-memoized in-process per artifact key; the persistent artifact cache is
-consulted when one is passed explicitly or activated process-wide
-(``repro_torch.compile.cache.set_default_artifact_cache``).  Every compile
-but ``compile_selection`` runs the static verifier (``VerifyPass``) before
-Lower by default.  The default target is the modeled GPU, ``gpu_sm(8)``.
+memoized in-process per artifact key (``_MEMO``, the one store of
+artifacts); the persistent artifact cache is consulted when one is passed
+explicitly or activated process-wide
+(``repro_torch.compile.cache.set_default_artifact_cache``).  In front of
+``_MEMO`` the workload frontends keep a second memo, ``_SIG``: the call's
+signature (frontend, its arguments, the graph's fingerprint or the default
+target, the approach's fingerprint, the backend) to the artifact key and the
+built program, so a warm ``compile_gemm`` / ``compile_gru`` /
+``compile_conv`` builds no graph, no program and no key.  ``clear_memo()``
+clears both.  Every compile but ``compile_selection`` runs the static
+verifier (``VerifyPass``) before Lower by default.  The default target is
+the modeled GPU, ``gpu_sm(8)``.
 """
 from __future__ import annotations
 
@@ -30,8 +37,8 @@ from ..core.sysgraph import SystemGraph, gpu_sm
 from ..telemetry import count, span
 from .artifact import CompiledKernel, CompileError
 from .cache import ArtifactCache, get_default_artifact_cache
-from .keys import (artifact_key, cacheable_approach, program_fingerprint,
-                   sysgraph_fingerprint)
+from .keys import (approach_fingerprint, artifact_key, cacheable_approach,
+                   program_fingerprint, sysgraph_fingerprint)
 from .pipeline import (CompileContext, LowerPass, MapPass, Pipeline,
                        SchedulePass, SelectPass, VerifyPass, run_pass)
 
@@ -40,9 +47,17 @@ from .pipeline import (CompileContext, LowerPass, MapPass, Pipeline,
 _MEMO: dict[str, CompiledKernel] = {}
 _MEMO_CAP = 512
 
+#: The frontends' signature memo: signature -> (artifact key, program, isa,
+#: allow_transforms).  It holds no artifact: a hit replays ``_MEMO[key]``.
+_SIG: dict[tuple, tuple] = {}
+
 
 def clear_memo() -> None:
+    """Forget every memoized compile: the artifacts (``_MEMO``) and the
+    frontends' signatures (``_SIG``), so the next compile of any workload
+    runs the pipeline (or reads the persistent cache) afresh."""
     _MEMO.clear()
+    _SIG.clear()
 
 
 def resolve_approach(approach) -> Approach:
@@ -224,10 +239,29 @@ def compile_selection(selection: Selection, graph: SystemGraph,
 def _compile_frontend(frontend: str, fe_args: dict, graph, approach, backend,
                       cache, use_cache, verify: bool = True) -> CompiledKernel:
     with span("compile." + frontend):
+        approach = resolve_approach(approach)
+        sig = None
+        if use_cache and cacheable_approach(approach):
+            # a caller's graph by its structure (it is mutable), the
+            # default target (no graph) by None
+            sig = (frontend, tuple(sorted(fe_args.items())),
+                   None if graph is None else sysgraph_fingerprint(graph),
+                   approach_fingerprint(approach), backend)
+            with span("compile.memo"):
+                known = _SIG.get(sig)
+                memo = _MEMO.get(known[0]) if known is not None else None
+                hit = _strip(memo) if memo is not None else None
+            if hit is not None:
+                count("compile.memo_hit")
+                count("compile.memo_sig")
+                # ``graph`` stays None for the default target: the artifact
+                # shares no graph, and ``recompile_schedule`` builds one
+                _, program, isa, allow_transforms = known
+                return _replay(hit, frontend, fe_args, program, graph,
+                               approach, isa, allow_transforms)
         if graph is None:
             with span("compile.graph"):
                 graph = gpu_sm(8)
-        approach = resolve_approach(approach)
         cache = _resolve_cache(cache, use_cache)
         # Frontend programs are cheap to rebuild; selections are not — key
         # off the program (+ the frontend's ISA/transform policy), select on
@@ -238,17 +272,32 @@ def _compile_frontend(frontend: str, fe_args: dict, graph, approach, backend,
         key, hit = _lookup(program, graph, approach, backend, cache,
                            use_cache, isa, allow_transforms)
         if hit is not None:
-            _attach(hit, program, graph, approach, isa, allow_transforms)
-            hit.meta.setdefault("frontend", frontend)
-            hit.meta.setdefault("frontend_args", dict(fe_args))
-            return hit
-        ctx = CompileContext(program=program, graph=graph, approach=approach,
-                             isa=isa, allow_transforms=allow_transforms,
-                             backend=backend, verify=verify,
-                             meta={"frontend": frontend,
-                                   "frontend_args": dict(fe_args)})
-        ctx.selection = _sel_builder()
-        return _finish(ctx, cache, memoize=use_cache)
+            art = _replay(hit, frontend, fe_args, program, graph, approach,
+                          isa, allow_transforms)
+        else:
+            ctx = CompileContext(program=program, graph=graph,
+                                 approach=approach, isa=isa,
+                                 allow_transforms=allow_transforms,
+                                 backend=backend, verify=verify,
+                                 meta={"frontend": frontend,
+                                       "frontend_args": dict(fe_args)})
+            ctx.selection = _sel_builder()
+            art = _finish(ctx, cache, memoize=use_cache)
+        if sig is not None:
+            if len(_SIG) >= _MEMO_CAP:
+                _SIG.clear()
+            _SIG[sig] = (key, program, isa, allow_transforms)
+        return art
+
+
+def _replay(hit: CompiledKernel, frontend: str, fe_args: dict, program,
+            graph, approach, isa, allow_transforms: bool) -> CompiledKernel:
+    """A frontend's memo or cache hit, with its compile inputs attached and
+    a ``frontend_args`` of its own (``_strip`` copies ``meta`` shallowly)."""
+    _attach(hit, program, graph, approach, isa, allow_transforms)
+    hit.meta.setdefault("frontend", frontend)
+    hit.meta["frontend_args"] = dict(fe_args)
+    return hit
 
 
 def _frontend_program(frontend: str, fe_args: dict, graph: SystemGraph):
@@ -393,7 +442,10 @@ def _attach(art: CompiledKernel, program, graph, approach, isa,
 def recompile_schedule(art: CompiledKernel) -> None:
     """Rebuild selection + schedule for a cache-hydrated artifact (used by
     ``CompiledKernel.ensure_schedule``).  Deterministic: the same program,
-    graph and approach reproduce the cached decisions exactly.
+    graph and approach reproduce the cached decisions exactly.  An artifact
+    with a program but no graph came from a frontend's signature memo on
+    the default target: ``gpu_sm(8)`` is built and attached here, and must
+    be the graph the artifact was compiled for.
 
     Fabric artifacts carry chip 0's *per-chip* schedule (what a fresh
     ``compile_fabric`` attaches), so the rebuild re-partitions and
@@ -410,6 +462,11 @@ def recompile_schedule(art: CompiledKernel) -> None:
         art.selection = shard0.selection
         art.schedule = shard0.schedule
         return
+    if art.graph is None:
+        art.graph = gpu_sm(8)
+        if sysgraph_fingerprint(art.graph) != art.graph_fp:
+            raise CompileError(f"{art.key} was not compiled for "
+                               f"{art.graph.name}; attach its graph")
     if art.selection is None:
         fe = art.meta.get("frontend")
         if fe in _FRONTENDS:

@@ -20,6 +20,7 @@ Mapping the cluster block onto a real thread-block cluster is later work.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import asdict, dataclass
 
@@ -58,12 +59,21 @@ def launch_config(lowering: dict, dtype: torch.dtype,
     block: a 4 x 4 share of the cluster's output block, each dim rounded up
     to a power of two and clamped to the route's built tiles.  Threads,
     shared memory (``Route.smem_bytes``), the grid over the problem and the
-    split-K slices (``gemm.split_k`` on an H100's SMs) follow the kernel."""
+    split-K slices (``gemm.split_k`` on an H100's SMs) follow the kernel.
+    A pure function of its arguments, derived once per (block, shape,
+    dtype, route)."""
     if lowering.get("kind") != "pallas_gpu_gemm":
         raise CompileError(f"not a GPU GEMM lowering: {lowering!r}")
     block = tuple(int(v) for v in lowering["block"])
-    m, n, k = shape or tuple(int(g) * b for g, b in
-                             zip(lowering["grid"], block))
+    shape = tuple(shape or (int(g) * b for g, b in
+                            zip(lowering["grid"], block)))
+    return _launch_config(block, shape, dtype, route)
+
+
+@functools.lru_cache(maxsize=512)
+def _launch_config(block: tuple[int, int, int], shape: tuple[int, int, int],
+                   dtype: torch.dtype, route: Route | None) -> LaunchConfig:
+    m, n, k = shape
     route = route or gemm_route(dtype, k)
     launch = gemm_launch(m, n, k, dtype, route_tile(block, route), route)
     if launch.smem_bytes > MAX_SMEM_BYTES:
@@ -100,7 +110,10 @@ def plan_gemm(m: int, n: int, k: int, dtype: torch.dtype = torch.float32,
     the shape short-circuits planning: its block (a ``measure`` record's
     before a ``cost`` one's, clamped to the problem) becomes the launch, and
     its modeled cost is returned as recorded.  The lookup happens on every
-    call, so activating a cache mid-process takes effect at once."""
+    call, before the compiler's memos are asked, so activating a cache
+    mid-process takes effect at once.  A warm call with no record is a hit
+    of the compiler's signature memo (``repro_torch.compile.driver``) and
+    of the launch memo behind ``launch_config``."""
     with span("ops.plan"):
         with span("plan.tuned"):
             rec = tuned_record(m, n, k, graph) if use_cache else None

@@ -37,7 +37,8 @@ from typing import NamedTuple
 CAP = 1 << 20
 
 #: the counters of this module; the launch counters live in the wrappers
-_counts = {"compile.memo_hit": 0, "compile.fresh": 0}
+_counts = {"compile.memo_hit": 0, "compile.memo_sig": 0,
+           "compile.fresh": 0}
 
 
 class Span(NamedTuple):
