@@ -56,10 +56,11 @@ launch the hand-written CUDA kernels with the plan.
      tanh, relu} x {f32, bf16} with bias uniform(-1, 1);
    * ``graph`` — the four compiled blocks run on the card
      (``CompiledGraph.execute``) on the tracer's ternary inputs
-     (``block_inputs``): each ``pallas_gpu_gemm`` node is one K1 launch at
-     the compiled plan's tile (``simt``, f32), each other node runs its
-     program through ``interpret_program`` in float64 on the card; K1's
-     launches must equal the graph's ``pallas_gpu_gemm`` nodes;
+     (``block_inputs``): each GEMM node, plain or fused with its epilogue,
+     is one K1 launch at the compiled plan's tile (``simt``, f32), each
+     epilogue and each other node runs its program through
+     ``interpret_program`` in float64 on the card; K1's launches must
+     equal the graph's GEMM nodes (kind ``gemm`` or ``fused``);
    * ``learned`` — the learned cost model (``search.model.train_suites`` on
      the ``gemm`` and ``conv`` tuner suites against ``gpu_sm(8)``, a fresh
      tuning cache and a fresh model store under ``build/repro_torch/``;
@@ -154,8 +155,8 @@ launch the hand-written CUDA kernels with the plan.
      then in bursts of 8 (``servesim_run`` lines: the modelled p50, p99,
      goodput and makespan, from the compiled blocks' simulated makespans,
      not from the card); then every pool entry executed once on the card
-     (``CompiledGraph.execute``: each ``pallas_gpu_gemm`` node one K1
-     launch, ``simt`` f32 at the compiled plan's tile);
+     (``CompiledGraph.execute``: each GEMM node one K1 launch, ``simt``
+     f32 at the compiled plan's tile);
    * ``cli`` — ``repro_torch.cli.main`` in process for each of
      ``CLI_RUNS``, each with ``--json`` (one ``cli`` line a run: exit code,
      seconds, K1 launches): ``compile --suite smoke --validate``, ``graph
@@ -619,18 +620,21 @@ def hold_graph(got: dict, want: dict) -> dict:
 def node_ms(cg, env: dict, dev, reps: int = 3) -> dict:
     """Where a block's ``execute`` time goes: each node rerun alone on its
     recorded inputs and event-timed (``reps`` calls, host path included),
-    summed over the K1 nodes and over the other (stream) nodes."""
-    from repro_torch.graph.execute import interpret_program, run_gemm_node
+    summed over the GEMM nodes (K1 or K2, with their epilogues) and over
+    the other (stream) nodes."""
+    from repro_torch.graph.execute import (interpret_program, node_steps,
+                                           run_gemm_step)
     out = {"k1_nodes": 0.0, "stream_nodes": 0.0}
+    steps = node_steps(cg)
     for node in cg.graph.nodes:
-        lowering = cg.kernels[cg.node_kernels[node.name]].lowering
+        step = steps[node.name]
         ins = {b: env[t] for b, t in node.inputs}
-        if lowering["kind"] == "stream":
+        if step is None:
             out["stream_nodes"] += time_ms(
                 lambda: interpret_program(node.program, ins, dev), reps)
         else:
-            out["k1_nodes"] += time_ms(
-                lambda: run_gemm_node(node, lowering, ins), reps)
+            out["k1_nodes"] += time_ms(lambda: run_gemm_step(step, ins),
+                                       reps)
     return out
 
 
@@ -1428,9 +1432,10 @@ def run_dryrun(failures: list) -> None:
         shutil.rmtree(out, ignore_errors=True)
 
 def gemm_nodes(cg) -> int:
-    """The nodes of a compiled graph that run as K1 launches."""
-    return sum(cg.kernels[cg.node_kernels[n.name]].lowering["kind"]
-               == "pallas_gpu_gemm" for n in cg.graph.nodes)
+    """The GEMM nodes of a compiled graph, by the kind the tracer and the
+    fusion pass gave them (``gemm``, or ``fused``: a GEMM with its
+    epilogue); each must run as one K1 or K2 launch."""
+    return sum(n.kind in ("gemm", "fused") for n in cg.graph.nodes)
 
 
 def run_servesim(dev, seed: int, failures: list) -> list:
@@ -1865,12 +1870,11 @@ def main() -> int:
     graph_rows = []
     for b, cg, cg2 in zip(blocks, first_graphs, second_graphs):
         b["cg"] = cg
-        kinds = [cg.kernels[cg.node_kernels[n.name]].lowering["kind"]
-                 for n in cg.graph.nodes]
-        b["gemm_nodes"] = kinds.count("pallas_gpu_gemm")
-        b["stream_nodes"] = kinds.count("stream")
+        nodes = len(cg.graph.nodes)
+        b["gemm_nodes"] = gemm_nodes(cg)
+        b["stream_nodes"] = nodes - b["gemm_nodes"]
         graph_rows.append({"graph": cg.name, "fused": b["fused"],
-                     "nodes": len(kinds), "gemm_nodes": b["gemm_nodes"],
+                     "nodes": nodes, "gemm_nodes": b["gemm_nodes"],
                      "stream_nodes": b["stream_nodes"],
                      "unique_programs": cg.stats["unique_programs"],
                      "fresh": cg.stats["fresh_compiles"],

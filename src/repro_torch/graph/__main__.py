@@ -11,6 +11,9 @@ block.
                                                   #   the card vs the float64
                                                   #   reference, bit-exact
     repro-torch graph --validate --device cpu     # the same on the CPU
+    repro-torch graph --whisper-layers 2 --validate  # whisper's decoder
+                                                  #   stack, held within
+                                                  #   WHISPER_REL
 
 The block is compiled against the port's target, ``gpu_sm(8)``.  Per-node
 table shows which kernel each node mapped to and whether the compile was
@@ -19,8 +22,14 @@ deduped (same program fingerprint) or served from the cache.
 card, where each ``pallas_gpu_gemm`` node is one K1 launch; without a card
 it raises unless ``--device cpu`` is given) and holds every output against
 ``interpret_graph`` and, for the block tracer, the torch float64 reference
-(``models.traceable.block_reference``) on the same device.  Exit status: 0
-iff compilation, ``--validate`` and ``--expect-cached`` all hold.
+(``models.traceable.block_reference``) on the same device.
+``--whisper-layers N`` traces N layers of whisper's decoder and its head
+(``trace_whisper_decoder``, ``--seq`` tokens over ``WHISPER_FRAMES``
+encoder frames) at the ``--arch`` trace config's widths; its values are
+not integers, so ``--validate`` holds it within a relative RMS error of
+``WHISPER_REL`` of the interpreter and of the float64 reference
+(``models.whisper_block_reference``) rather than bit for bit.  Exit status:
+0 iff compilation, ``--validate`` and ``--expect-cached`` all hold.
 """
 from __future__ import annotations
 
@@ -28,6 +37,13 @@ import argparse
 import json
 
 import numpy as np
+
+#: ``--validate``'s relative RMS bound for the whisper stack: f32 node
+#: boundaries and f32 GEMM sums against float64 (about 1e-7 at the trace
+#: config's size)
+WHISPER_REL = 1e-5
+#: the encoder frames the whisper stack attends to
+WHISPER_FRAMES = 12
 
 
 def main(argv=None) -> int:
@@ -44,6 +60,9 @@ def main(argv=None) -> int:
     ap.add_argument("--gru", action="store_true",
                     help="trace the unrolled GRU chain instead of the "
                          "transformer block")
+    ap.add_argument("--whisper-layers", type=int, default=0, metavar="N",
+                    help="trace N layers of whisper's decoder stack and its "
+                         "head instead of the transformer block")
     ap.add_argument("--no-fuse", action="store_true",
                     help="skip epilogue fusion")
     ap.add_argument("--budget", type=int, default=None,
@@ -70,12 +89,16 @@ def main(argv=None) -> int:
     from .fuse import fuse_epilogues
     from .ir import interpret_graph
     from .trace import (assert_exactness_bound, block_inputs, trace_block,
-                        trace_gru_chain)
+                        trace_gru_chain, trace_whisper_decoder)
 
     failures = 0
     if args.gru:
         cfg = None
         g = trace_gru_chain()
+    elif args.whisper_layers:
+        cfg = get_trace_config(args.arch)
+        g = trace_whisper_decoder(cfg, args.seq, WHISPER_FRAMES,
+                                  args.whisper_layers)
     else:
         cfg = get_trace_config(args.arch)
         g = trace_block(cfg, seq_len=args.seq)
@@ -118,7 +141,10 @@ def main(argv=None) -> int:
         failures += 1
 
     validated = None
-    if args.validate:
+    if args.validate and args.whisper_layers:
+        validated = _validate_whisper(cg, g, cfg, args)
+        failures += not validated
+    elif args.validate:
         dev = resolve_device(args.device)
         inputs = block_inputs(g)
         interp = interpret_graph(g, inputs)
@@ -158,6 +184,47 @@ def main(argv=None) -> int:
     print(f"# makespan={cg.makespan:.3e}s hbm={cg.hbm_bytes}B "
           f"edge={cg.edge_bytes}B, {failures} failure(s)")
     return 1 if failures else 0
+
+
+def _validate_whisper(cg, g, cfg, args) -> bool:
+    """The whisper stack executed on ``--device`` and interpreted, each
+    within ``WHISPER_REL`` of the other and of the float64 reference, on
+    weights and inputs drawn from seed 0."""
+    import torch
+
+    from ..kernels.cuda import resolve_device
+    from ..models import whisper_block_reference as ref
+    from .ir import interpret_graph
+    from .trace import whisper_inputs
+
+    dev = resolve_device(args.device)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = ref.init_params(cfg.d_model, cfg.d_ff, cfg.vocab_size,
+                             args.whisper_layers, gen, dev)
+    x = torch.randn(args.seq, cfg.d_model, generator=gen, device=dev)
+    xa = torch.randn(WHISPER_FRAMES, cfg.d_model, generator=gen, device=dev)
+    inputs = whisper_inputs(g, params, x, xa)
+    want = dict(zip(g.outputs, ref.decoder(params, x, xa, cfg.n_heads,
+                                           args.whisper_layers)))
+    interp = interpret_graph(g, {t: v.cpu().numpy()
+                                 for t, v in inputs.items()})
+    executed = cg.execute(inputs, device=dev)
+
+    def rel(got, ref_t) -> float:
+        got = torch.as_tensor(got).to(ref_t.device, torch.float64)
+        return float((got - ref_t).norm() / ref_t.norm())
+    checks = [("executed-vs-interpreted",
+               max(rel(executed[t], torch.as_tensor(interp[t]).to(dev)
+                       .double()) for t in g.outputs)),
+              ("interpreted-vs-reference",
+               max(rel(interp[t], want[t]) for t in g.outputs)),
+              ("executed-vs-reference",
+               max(rel(executed[t], want[t]) for t in g.outputs))]
+    for name, err in checks:
+        ok = err <= WHISPER_REL
+        print(f"  [{'ok' if ok else 'FAIL'}] {name}: rel_rms={err:.3e} "
+              f"(limit {WHISPER_REL:g})")
+    return all(err <= WHISPER_REL for _, err in checks)
 
 
 if __name__ == "__main__":

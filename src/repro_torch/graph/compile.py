@@ -18,7 +18,10 @@ compilation path — it adds reuse and placement on top:
 The resulting ``CompiledGraph`` serializes to JSON (graph + per-node
 kernel payloads + placement + stats) and executes on the card
 (``execute.py``): every ``pallas_gpu_gemm`` node is one K1 launch at the
-compiled plan's tile, every other node runs its program through
+compiled plan's tile; a ``stream`` node that starts with a GEMM (a fused
+GEMM + epilogue, a biased projection) is one K1 launch, or one K2 launch
+where a bias (and a K2 activation) follows, with the rest of its program
+interpreted on the result; every other node runs its program through
 ``interpret_program`` — bit-exact against ``interpret_graph`` and the torch
 reference (``repro_torch.models.traceable``) wherever the exactness bound
 holds.  The default target is the port's, ``gpu_sm(8)``.
@@ -146,6 +149,10 @@ class CompiledGraph:
     stats: dict = field(default_factory=dict)
     decisions: list = field(default_factory=list)     # fusion decision dicts
     graph: KernelGraph | None = None
+    #: each node's ``execute.gemm_step``, derived at the first ``execute``
+    #: and not serialized
+    steps: dict | None = field(default=None, init=False, repr=False,
+                               compare=False)
 
     # -- execution -----------------------------------------------------------
     def execute(self, inputs: dict, device=None,

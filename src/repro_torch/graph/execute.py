@@ -3,8 +3,10 @@
 NumPy executor.
 
 Each node's compiled artifact (``CompiledGraph.node_kernels``) says how it
-runs; only its ``lowering`` and the node's program are read, so a graph
-read back by ``CompiledGraph.from_dict`` runs without ``ensure_kernels``:
+runs; only its ``lowering``, its plan (``instrs``) and the node's program
+are read, so a graph read back by ``CompiledGraph.from_dict`` runs without
+``ensure_kernels``.  What each node does is read once per graph
+(``gemm_step``) and kept on it:
 
   * a ``pallas_gpu_gemm`` node is one K1 launch (``kernels.gemm.gemm``) at
     the tile ``ops.launch_config`` maps the compiled block to.  Which
@@ -14,18 +16,37 @@ read back by ``CompiledGraph.from_dict`` runs without ``ensure_kernels``:
     operand (``matmul_nt``'s B, the attention scores' kᵀ) is copied once
     into the (K, N) contiguous layout K1 takes.  The tuning cache is not
     consulted: the artifact is what the graph tier compiled.
-  * every other node (``stream``: the elementwise nodes and the fused
-    GEMM + epilogue nodes, which the JAX package runs as executor-backed
-    instruction streams, with no Pallas kernel) runs its program through
-    ``interpret_program``: float64 on the node's device, one rounding at
-    the node boundary, as the JAX replay does.
+  * a ``stream`` node whose program starts with that GEMM triple (the fused
+    GEMM + epilogue nodes, and the tracers' biased projections, which the
+    JAX package runs as executor-backed instruction streams) runs the
+    triple as one K1 launch at its plan's matmul tile; where the next
+    statement is ``C += bias[j]``, optionally followed by one of K2's
+    activations, the triple and those are one K2 launch
+    (``kernels.gemm.gemm_bias_act``) instead.  The statements left run
+    through ``interpret_program`` on the (m, n) result and the node's
+    other operands: the (m, n, k) product is never allocated.
+  * every other node (``stream``: elementwise and reduction nodes) runs its
+    program through ``interpret_program``: float64 on the node's device,
+    one rounding at the node boundary, as the JAX replay does.
 
-Every produced tensor is cast to its ``TensorSpec`` dtype at the node
-boundary, as ``interpret_graph`` does.  Nothing falls back: a CUDA tensor
-launches K1 or raises, and ``launch_config``'s errors propagate.
+A GEMM's sum is rounded to f32 before an epilogue reads it, where the
+interpreter keeps float64: the results agree bit for bit where every value
+stays an integer below 2^24 (the tracers' ternary oracle inputs), and to
+rounding otherwise.  Every produced tensor is cast to its ``TensorSpec``
+dtype at the node boundary, as ``interpret_graph`` does.  Nothing falls
+back: a CUDA tensor launches K1 or K2 or raises, and ``launch_config``'s
+errors propagate.
+
+A request is the span ``graph.execute``; below it ``graph.gemm`` (a K1 or
+K2 node's dispatch, its operand transposes included), ``graph.epilogue``
+(the statements after the launch) and ``graph.stream`` (an interpreted
+node).  The counters ``graph.nodes``, ``graph.gemm_nodes`` (K1 or K2),
+``graph.k2_nodes`` (K2 among them) and ``graph.stream_nodes`` count the
+nodes run.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Mapping
 
 import numpy as np
@@ -33,8 +54,9 @@ import torch
 
 from ..core.ir import Access, IRError, Program
 from ..kernels.cuda import resolve_device
-from ..kernels.gemm import gemm
+from ..kernels.gemm import ACTS, gemm, gemm_bias_act
 from ..kernels.ops import launch_config
+from ..telemetry import count, span
 from .ir import GraphError, np_dtype
 
 #: the ISAMIR dtypes as torch dtypes — the same mapping as
@@ -163,7 +185,7 @@ def interpret_program(prog: Program, inputs: Mapping[str, object],
 
 
 # --------------------------------------------------------------------------- #
-# GEMM nodes: K1
+# GEMM nodes: K1 and K2
 # --------------------------------------------------------------------------- #
 
 
@@ -179,21 +201,20 @@ def _selected_axes(prog: Program, acc: Access) -> tuple[str, ...] | None:
     return tuple(names)
 
 
-def gemm_operands(prog: Program):
-    """Read a GEMM node's program: ``((A buffer, transposed), (B buffer,
-    transposed), (m, n, k))`` for C (m, n) = A (m, k) @ B (k, n), where a
-    transposed operand is stored (k, m) or (n, k).  The reduction axis is
-    the one C does not index.  Raises ``GraphError`` on any program that is
-    not ``t := A; t *= B; C += t`` over two operands."""
+def _gemm_head(prog: Program):
+    """Read the GEMM triple ``t := A; t *= B; C += t`` a program starts
+    with: ``((A, transposed), (B, transposed), (m, n, k), t, (ci, cj))``,
+    ``ci``/``cj`` the axes C is indexed by.  Raises ``GraphError`` where
+    the program does not start with one."""
     def bad(why: str) -> GraphError:
         return GraphError(f"{prog.name}: not a two-operand GEMM program "
                           f"({why})")
 
-    if [s.op for s in prog.statements] != [":=", "*=", "+="] \
+    if [s.op for s in prog.statements[:3]] != [":=", "*=", "+="] \
             or len(prog.outputs) != 1:
         raise bad("statements " + str([s.op for s in prog.statements]))
     out = prog.outputs[0]
-    load, mul, acc = prog.statements
+    load, mul, acc = prog.statements[:3]
     c_axes = _selected_axes(prog, acc.lhs)
     t_axes = _selected_axes(prog, acc.rhs)
     if acc.lhs.buffer != out or c_axes is None or len(c_axes) != 2 \
@@ -211,26 +232,143 @@ def gemm_operands(prog: Program):
             raise bad(f"operand {s.rhs.buffer}")
         found[role[0]] = (s.rhs.buffer, role[1])
     size = {a.name: a.size for a in prog.axes}
-    return found["A"], found["B"], (size[ci], size[cj], size[r])
+    return (found["A"], found["B"], (size[ci], size[cj], size[r]),
+            acc.rhs.buffer, (ci, cj))
 
 
-def run_gemm_node(node, lowering: dict, ins: dict) -> dict:
-    """One K1 launch for a ``pallas_gpu_gemm`` node at the compiled plan's
-    tile; returns the program's output."""
-    (a_buf, a_t), (b_buf, b_t), (m, n, k) = gemm_operands(node.program)
-    if set(ins) != {a_buf, b_buf}:
-        raise GraphError(f"{node.name}: a GEMM node is wired {sorted(ins)}, "
-                         f"not its operands {sorted((a_buf, b_buf))}")
-    a, b = ins[a_buf], ins[b_buf]
-    a = a.t().contiguous() if a_t else a
-    b = b.t().contiguous() if b_t else b
-    tile = launch_config(lowering, torch.float32, (m, n, k)).tile
-    return {node.program.outputs[0]: gemm(a, b, tile=tile)}
+def gemm_operands(prog: Program):
+    """Read a GEMM node's program: ``((A buffer, transposed), (B buffer,
+    transposed), (m, n, k))`` for C (m, n) = A (m, k) @ B (k, n), where a
+    transposed operand is stored (k, m) or (n, k).  The reduction axis is
+    the one C does not index.  Raises ``GraphError`` on any program that is
+    not ``t := A; t *= B; C += t`` over two operands."""
+    head = _gemm_head(prog)
+    if len(prog.statements) != 3:
+        raise GraphError(f"{prog.name}: not a two-operand GEMM program "
+                         f"(statements "
+                         f"{[s.op for s in prog.statements]})")
+    return head[:3]
+
+
+@dataclass(frozen=True)
+class GemmStep:
+    """How a node whose program starts with the GEMM triple runs: one K1
+    launch (``bias`` None) or one K2 launch (``gemm_bias_act`` with the
+    bias buffer and ``act``) at ``tile`` (None: K1's own choice), then the
+    program's remaining statements (``epilogue``, None when there are
+    none) through ``interpret_program`` on the (m, n) result."""
+
+    a: tuple[str, bool]
+    b: tuple[str, bool]
+    shape: tuple[int, int, int]
+    out: str
+    tile: tuple[int, int, int] | None
+    bias: str | None = None
+    act: str = ""
+    epilogue: Program | None = None
+
+
+def _plan_tile(kernel, prog: Program, shape) -> tuple[int, int, int] | None:
+    """K1's tile for a stream node's GEMM: the block of the compiled plan's
+    matmul instruction (``mxu.matmul`` or ``fused.matmul_bias``), mapped as
+    ``launch_config`` maps a ``pallas_gpu_gemm`` block; None where the plan
+    has no such instruction."""
+    for p in kernel.instrs:
+        if not p.needle.startswith(("mxu.matmul", "fused.matmul_bias")):
+            continue
+        tiles, axes = dict(p.tile), dict(p.axis_map)
+        if not set("ijk") <= set(tiles) & set(axes):
+            return None
+        block = tuple(min(tiles[r], prog.axis(axes[r]).size) for r in "ijk")
+        return launch_config({"kind": "pallas_gpu_gemm", "block": block},
+                             torch.float32, shape).tile
+    return None
+
+
+def gemm_step(node, kernel) -> GemmStep | None:
+    """The node's ``GemmStep``, or None where it runs through
+    ``interpret_program`` (a ``stream`` node that does not start with the
+    GEMM triple, or whose rest reads the triple's product or C's old
+    value).  A ``pallas_gpu_gemm`` node is one K1 launch at its lowering's
+    tile.  A ``stream`` node that starts with the triple is one K1 launch
+    at its plan's tile, or one K2 launch where the next statement is
+    ``C += bias[j]`` (and, if the one after is a K2 activation of C in
+    place, that too); the statements left are its epilogue."""
+    prog, lowering = node.program, kernel.lowering
+    wired = {buf for buf, _ in node.inputs}
+    if lowering.get("kind") != "stream":
+        a, b, shape = gemm_operands(prog)
+        if wired != {a[0], b[0]}:
+            raise GraphError(f"{node.name}: a GEMM node is wired "
+                             f"{sorted(wired)}, not its operands "
+                             f"{sorted((a[0], b[0]))}")
+        tile = launch_config(lowering, torch.float32, shape).tile
+        return GemmStep(a, b, shape, prog.outputs[0], tile)
+    try:
+        a, b, shape, tmp, (ci, cj) = _gemm_head(prog)
+    except GraphError:
+        return None
+    out = prog.outputs[0]
+    rest = list(prog.statements[3:])
+    if out in wired or not {a[0], b[0]} <= wired or any(
+            tmp in (s.lhs.buffer, s.rhs.buffer) for s in rest):
+        return None
+
+    def on_c(acc) -> bool:
+        return acc.buffer == out and _selected_axes(prog, acc) == (ci, cj)
+
+    bias, act = None, ""
+    if rest and rest[0].op == "+=" and on_c(rest[0].lhs) \
+            and rest[0].rhs.buffer in wired \
+            and _selected_axes(prog, rest[0].rhs) == (cj,):
+        bias = rest.pop(0).rhs.buffer
+        if rest and rest[0].op == "apply" and rest[0].fn in ACTS \
+                and on_c(rest[0].lhs) and on_c(rest[0].rhs):
+            act = rest.pop(0).fn
+    epilogue = None
+    if rest:
+        used = {out} | {acc.buffer for s in rest for acc in (s.lhs, s.rhs)}
+        epilogue = Program(f"{prog.name}~epilogue", prog.axes,
+                           tuple(bf for bf in prog.buffers
+                                 if bf.name in used),
+                           tuple(rest), (out,))
+    return GemmStep(a, b, shape, out, _plan_tile(kernel, prog, shape),
+                    bias, act, epilogue)
+
+
+def run_gemm_step(step: GemmStep, ins: dict) -> dict:
+    """One K1 or K2 launch, then the epilogue; returns the program's
+    output."""
+    count("graph.gemm_nodes")
+    with span("graph.gemm"):
+        (a_buf, a_t), (b_buf, b_t) = step.a, step.b
+        a, b = ins[a_buf], ins[b_buf]
+        a = a.t().contiguous() if a_t else a
+        b = b.t().contiguous() if b_t else b
+        if step.bias is None:
+            c = gemm(a, b, tile=step.tile)
+        else:
+            count("graph.k2_nodes")
+            c = gemm_bias_act(a, b, ins[step.bias], step.act, tile=step.tile)
+    if step.epilogue is None:
+        return {step.out: c}
+    with span("graph.epilogue"):
+        return interpret_program(step.epilogue, {**ins, step.out: c},
+                                 c.device)
 
 
 # --------------------------------------------------------------------------- #
 # The graph
 # --------------------------------------------------------------------------- #
+
+
+def node_steps(cg) -> dict:
+    """Each node's ``gemm_step`` (None: interpreted), read from its program
+    and artifact once per ``CompiledGraph`` and kept on it."""
+    if cg.steps is None:
+        cg.steps = {n.name: gemm_step(n, cg.kernels[cg.node_kernels[n.name]])
+                    for n in cg.graph.nodes}
+    return cg.steps
 
 
 def execute_graph(cg, inputs: Mapping[str, object], device=None,
@@ -246,28 +384,33 @@ def execute_graph(cg, inputs: Mapping[str, object], device=None,
         raise GraphError("CompiledGraph has no graph attached; "
                          "rebuild via from_dict/compile_graph")
     dev = resolve_device(device)
-    env: dict[str, torch.Tensor] = {}
-    for t in g.inputs:
-        if t not in inputs:
-            raise GraphError(f"missing graph input {t!r}")
-        spec = g.tensors[t]
-        x = inputs[t]
-        if not isinstance(x, torch.Tensor):
-            x = torch.tensor(np.asarray(x, dtype=np_dtype(spec.dtype)))
-        x = x.to(dev, torch_dtype(spec.dtype)).contiguous()
-        if tuple(x.shape) != tuple(spec.shape):
-            raise GraphError(f"input {t}: shape {tuple(x.shape)} != "
-                             f"{spec.shape}")
-        env[t] = x
-    for node in g.nodes:
-        lowering = cg.kernels[cg.node_kernels[node.name]].lowering
-        ins = {buf: env[t] for buf, t in node.inputs}
-        if lowering.get("kind") == "stream":
-            outs = interpret_program(node.program, ins, dev)
-        else:
-            outs = run_gemm_node(node, lowering, ins)
-        for buf, t in node.outputs:
-            env[t] = outs[buf].to(torch_dtype(g.tensors[t].dtype))
+    steps = node_steps(cg)
+    with span("graph.execute"):
+        env: dict[str, torch.Tensor] = {}
+        for t in g.inputs:
+            if t not in inputs:
+                raise GraphError(f"missing graph input {t!r}")
+            spec = g.tensors[t]
+            x = inputs[t]
+            if not isinstance(x, torch.Tensor):
+                x = torch.tensor(np.asarray(x, dtype=np_dtype(spec.dtype)))
+            x = x.to(dev, torch_dtype(spec.dtype)).contiguous()
+            if tuple(x.shape) != tuple(spec.shape):
+                raise GraphError(f"input {t}: shape {tuple(x.shape)} != "
+                                 f"{spec.shape}")
+            env[t] = x
+        for node in g.nodes:
+            count("graph.nodes")
+            ins = {buf: env[t] for buf, t in node.inputs}
+            step = steps[node.name]
+            if step is None:
+                count("graph.stream_nodes")
+                with span("graph.stream"):
+                    outs = interpret_program(node.program, ins, dev)
+            else:
+                outs = run_gemm_step(step, ins)
+            for buf, t in node.outputs:
+                env[t] = outs[buf].to(torch_dtype(g.tensors[t].dtype))
     if return_all:
         return env
     return {t: env[t] for t in g.outputs}

@@ -38,7 +38,8 @@ CAP = 1 << 20
 
 #: the counters of this module; the launch counters live in the wrappers
 _counts = {"compile.memo_hit": 0, "compile.memo_sig": 0,
-           "compile.fresh": 0}
+           "compile.fresh": 0, "graph.nodes": 0, "graph.gemm_nodes": 0,
+           "graph.k2_nodes": 0, "graph.stream_nodes": 0}
 
 
 class Span(NamedTuple):

@@ -708,6 +708,18 @@ def test_k1_at_the_block_plans_launch(cuda_device, m, n, k, nt):
         atol=1e-5 * float(want.abs().max()))
 
 
+def _gemm_nodes(cg) -> int:
+    """The graph's GEMM nodes by the kind the tracer and the fusion pass
+    gave them (``gemm``, or ``fused``: a GEMM with its epilogue), each of
+    which the executor must run as one K1 or K2 launch: no such node may
+    fall to the interpreter, and no other node may launch."""
+    from repro_torch.graph.execute import node_steps
+    steps = node_steps(cg)
+    gemms = {n.name for n in cg.graph.nodes if n.kind in ("gemm", "fused")}
+    assert {name for name, s in steps.items() if s is not None} == gemms
+    return len(gemms)
+
+
 def _trace_block(fused: bool):
     from repro_torch.configs import get_trace_config
     from repro_torch.graph import (block_inputs, compile_graph,
@@ -727,8 +739,8 @@ def _trace_block(fused: bool):
 def test_trace_block_on_card_bit_exact(cuda_device, fused):
     from repro_torch.models.traceable import block_reference
     cfg, cg, inputs = _trace_block(fused)
-    gemm_nodes = sum(cg.kernels[cg.node_kernels[n.name]].lowering["kind"]
-                     == "pallas_gpu_gemm" for n in cg.graph.nodes)
+    # a GEMM node (plain, or fused with its epilogue) is one K1 launch
+    gemm_nodes = _gemm_nodes(cg)
     before = gemm.launches
     got = cg.execute(inputs, return_all=True)
     torch.cuda.synchronize()
@@ -750,9 +762,9 @@ def test_trace_block_on_card_bit_exact(cuda_device, fused):
                          ids=["fused", "unfused", "seq16"])
 def test_graph_cli_validate_on_card(cuda_device, tmp_path, capsys, argv):
     """``python -m repro_torch.graph --validate`` with no ``--device``: the
-    compiled block runs on the card, one K1 launch for each
-    ``pallas_gpu_gemm`` node, bit-exact against the interpreter and the
-    float64 reference."""
+    compiled block runs on the card, one K1 launch for each GEMM node
+    (plain or fused with its epilogue), bit-exact against the interpreter
+    and the float64 reference."""
     import json
     import repro_torch.graph.__main__ as graph_cli
     from repro_torch.configs import get_trace_config
@@ -763,8 +775,7 @@ def test_graph_cli_validate_on_card(cuda_device, tmp_path, capsys, argv):
     if "--no-fuse" not in argv:
         g, decisions = fuse_epilogues(g)
     cg = compile_graph(g, decisions=decisions)
-    gemm_nodes = sum(cg.kernels[cg.node_kernels[n.name]].lowering["kind"]
-                     == "pallas_gpu_gemm" for n in cg.graph.nodes)
+    gemm_nodes = _gemm_nodes(cg)
     path = tmp_path / "graph.json"
     before = gemm.launches
     assert graph_cli.main([*argv, "--validate", "--json", str(path)]) == 0
@@ -775,6 +786,68 @@ def test_graph_cli_validate_on_card(cuda_device, tmp_path, capsys, argv):
                   "executed-vs-reference"):
         assert f"[ok] {check}: bit-exact=True" in out
     assert json.loads(path.read_text())["validated"] is True
+
+
+def _whisper_stack(cfg, T, S, layers, device):
+    """whisper's decoder stack traced, fused and compiled, its inputs from
+    seed 0 on ``device``, and the float64 reference's outputs."""
+    from repro_torch.graph import (compile_graph, fuse_epilogues,
+                                   trace_whisper_decoder, whisper_inputs)
+    from repro_torch.models import whisper_block_reference as R
+    g, decisions = fuse_epilogues(trace_whisper_decoder(cfg, T, S, layers))
+    cg = compile_graph(g, use_cache=False, decisions=decisions)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = R.init_params(cfg.d_model, cfg.d_ff, cfg.vocab_size, layers,
+                           gen, device)
+    x = torch.randn(T, cfg.d_model, generator=gen, device=device)
+    xa = torch.randn(S, cfg.d_model, generator=gen, device=device)
+    want = dict(zip(g.outputs, R.decoder(params, x, xa, cfg.n_heads,
+                                         layers)))
+    return cg, whisper_inputs(g, params, x, xa), want
+
+
+def _rel_rms(got, want) -> float:
+    return float((got.double() - want).norm() / want.norm())
+
+
+@pytest.mark.gpu
+def test_whisper_stack_on_card_matches_the_reference(cuda_device):
+    """The small stack of the CPU tests on the card: within 1e-5 of the
+    float64 reference (f32 node boundaries and K1's f32 sums), and of the
+    same graph run on the CPU."""
+    from repro_torch.configs import get_trace_config
+    cg, inputs, want = _whisper_stack(get_trace_config("whisper-medium"), 8,
+                                      12, 2, cuda_device)
+    got = cg.execute(inputs)
+    plain = cg.execute({t: v.cpu() for t, v in inputs.items()}, device="cpu")
+    for t, v in want.items():
+        assert got[t].device.type == "cuda"
+        assert _rel_rms(got[t], v) < 1e-5, t
+        assert _rel_rms(got[t].cpu(), plain[t].double()) < 1e-5, t
+
+
+@pytest.mark.gpu
+def test_whisper_layer_at_full_width_on_card(cuda_device):
+    """One layer of whisper-medium at its published widths, 32 tokens over
+    1500 frames and the 51,865-row head: every GEMM node is one K1 or K2
+    launch, and the logits are within ``whisper-block-f32``'s limit on
+    ``rel_rms`` (3e-5) of the float64 reference."""
+    from repro_torch.configs import get_config
+    cg, inputs, want = _whisper_stack(get_config("whisper-medium"), 32, 1500,
+                                      1, cuda_device)
+    # by hand: per attention, 16 heads of q, k, v, scores, weighted values
+    # and output projection; fc1, fc2; the head.  Biased: q and v of every
+    # head, head 0's output projection (bo), fc1, fc2
+    assert _gemm_nodes(cg) == 2 * 16 * 6 + 2 + 1 == 195
+    n_k2 = 2 * (16 * 2 + 1) + 2
+    before = (gemm.launches, gemm_bias_act.launches)
+    got = cg.execute(inputs)
+    torch.cuda.synchronize()
+    k1 = gemm.launches - before[0]
+    k2 = gemm_bias_act.launches - before[1]
+    assert (k1, k2) == (195 - n_k2, n_k2)
+    assert _rel_rms(got["logits"], want["logits"]) < 3e-5
+    assert _rel_rms(got["x1"], want["x1"]) < 3e-5
 
 
 @pytest.mark.gpu

@@ -146,7 +146,8 @@ def test_counters_read_the_launch_counters_where_they_live(monkeypatch):
         assert telemetry.counters()[key] == getattr(obj, attr)
     assert set(telemetry.counters()) == {
         "compile.memo_hit", "compile.memo_sig", "compile.fresh",
-        "gemm.launches",
+        "graph.nodes", "graph.gemm_nodes", "graph.k2_nodes",
+        "graph.stream_nodes", "gemm.launches",
         "gemm_bias_act.launches", "gemm_transpose", "gemm_reduce",
         "gru_cell.launches", "gru_cell_reduce", "gru_seq.launches"}
 
