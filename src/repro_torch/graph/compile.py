@@ -153,12 +153,18 @@ class CompiledGraph:
     #: and not serialized
     steps: dict | None = field(default=None, init=False, repr=False,
                                compare=False)
+    #: each CUDA device's ``execute.Replay``: the runs so far, then the
+    #: captured CUDA graph with its static inputs, outputs and memory pool;
+    #: not serialized, freed with the ``CompiledGraph``
+    replays: dict = field(default_factory=dict, init=False, repr=False,
+                          compare=False)
 
     # -- execution -----------------------------------------------------------
     def execute(self, inputs: dict, device=None,
                 return_all: bool = False) -> dict:
         """Run the graph on ``device`` (default: the card; ``"cpu"`` runs
-        the same dispatch on the kernels' plain versions) — see
+        the same dispatch on the kernels' plain versions; from the second
+        call on a card, one CUDA graph replays it) — see
         ``execute.execute_graph``.  Returns torch tensors on the device."""
         return execute_graph(self, inputs, device=device,
                              return_all=return_all)

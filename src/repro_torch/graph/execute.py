@@ -37,16 +37,36 @@ dtype at the node boundary, as ``interpret_graph`` does.  Nothing falls
 back: a CUDA tensor launches K1 or K2 or raises, and ``launch_config``'s
 errors propagate.
 
+On a card a ``CompiledGraph``'s node loop is one fixed chain of launches
+on PyTorch's current stream, so from its second call it is one CUDA graph
+(``Replay``, kept per device on ``CompiledGraph.replays``): the first call
+runs eagerly and warms the kernels and the allocator; the second captures
+the node loop under ``torch.cuda.graph`` and replays it once; every later
+call replays.  The same kernels run at the same tiles on the same values,
+so a replay gives an eager run's bits.  The capture binds one static
+tensor per graph input; a replay copies each input into it, unless the
+input is the tensor object copied last time and its ``_version`` has not
+moved (a change PyTorch does not count, through ``.data`` or a pointer,
+is not seen), and returns clones of the static outputs, which the next
+replay overwrites.  ``device="cpu"`` and ``return_all`` always run
+eagerly.  A capture that fails raises.
+
 A request is the span ``graph.execute``; below it ``graph.gemm`` (a K1 or
 K2 node's dispatch, its operand transposes included), ``graph.epilogue``
 (the statements after the launch) and ``graph.stream`` (an interpreted
-node).  The counters ``graph.nodes``, ``graph.gemm_nodes`` (K1 or K2),
-``graph.k2_nodes`` (K2 among them) and ``graph.stream_nodes`` count the
-nodes run.
+node); on a card from the second call, ``graph.capture`` (the capture,
+with the node loop's spans below it) or ``graph.replay`` (copies in, the
+replay, the clones out).  The counters ``graph.nodes``,
+``graph.gemm_nodes`` (K1 or K2), ``graph.k2_nodes`` (K2 among them) and
+``graph.stream_nodes`` count the nodes run; ``graph.capture`` and
+``graph.replay`` count captures and replays.  A replay advances those four
+and K1/K2's launch counters by what its capture counted, since the card
+runs those launches again.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import weakref
+from dataclasses import dataclass, field
 from typing import Mapping
 
 import numpy as np
@@ -54,9 +74,10 @@ import torch
 
 from ..core.ir import Access, IRError, Program
 from ..kernels.cuda import resolve_device
-from ..kernels.gemm import ACTS, gemm, gemm_bias_act
+from ..kernels.gemm import (ACTS, gemm, gemm_bias_act, gemm_reduce,
+                            gemm_transpose)
 from ..kernels.ops import launch_config
-from ..telemetry import count, span
+from ..telemetry import count, counters, span
 from .ir import GraphError, np_dtype
 
 #: the ISAMIR dtypes as torch dtypes — the same mapping as
@@ -371,6 +392,160 @@ def node_steps(cg) -> dict:
     return cg.steps
 
 
+#: the counters one ``execute`` advances: the executor's, then the
+#: wrappers' launch counters (``telemetry.counters()`` names) and where
+#: each lives
+GRAPH_COUNTERS = ("graph.nodes", "graph.gemm_nodes", "graph.k2_nodes",
+                  "graph.stream_nodes")
+LAUNCH_COUNTERS = {"gemm.launches": gemm,
+                   "gemm_bias_act.launches": gemm_bias_act,
+                   "gemm_transpose": gemm_transpose,
+                   "gemm_reduce": gemm_reduce}
+
+
+@dataclass(eq=False)
+class Replay:
+    """A ``CompiledGraph``'s CUDA graph on one device: eager ``runs`` so
+    far, then the captured ``graph``, its static inputs and outputs, what
+    each static input last copied (a weak reference to the caller's tensor
+    and its ``_version``), and the counters one run advances."""
+
+    runs: int = 0
+    graph: object = None                   # torch.cuda.CUDAGraph
+    inputs: dict = field(default_factory=dict)
+    copied: dict = field(default_factory=dict)
+    outputs: dict = field(default_factory=dict)
+    counts: dict = field(default_factory=dict)
+
+
+def _input(g, inputs: Mapping[str, object], t: str):
+    """Graph input ``t`` as a tensor (a NumPy array in its ``TensorSpec``
+    dtype, as it was given otherwise)."""
+    if t not in inputs:
+        raise GraphError(f"missing graph input {t!r}")
+    x = inputs[t]
+    if not isinstance(x, torch.Tensor):
+        x = torch.tensor(np.asarray(x, dtype=np_dtype(g.tensors[t].dtype)))
+    return x
+
+
+def _check_shape(g, t: str, x: torch.Tensor) -> None:
+    spec = g.tensors[t]
+    if tuple(x.shape) != tuple(spec.shape):
+        raise GraphError(f"input {t}: shape {tuple(x.shape)} != "
+                         f"{spec.shape}")
+
+
+def _bind(g, inputs: Mapping[str, object], dev) -> dict[str, torch.Tensor]:
+    """Each graph input on ``dev``, contiguous, in its ``TensorSpec``
+    dtype (the caller's tensor itself where it already is)."""
+    env = {}
+    for t in g.inputs:
+        x = _input(g, inputs, t).to(dev, torch_dtype(g.tensors[t].dtype))
+        x = x.contiguous()
+        _check_shape(g, t, x)
+        env[t] = x
+    return env
+
+
+def _run_nodes(g, steps: dict, env: dict, dev) -> None:
+    """Every node in graph order, each output cast to its ``TensorSpec``
+    dtype into ``env``."""
+    for node in g.nodes:
+        count("graph.nodes")
+        ins = {buf: env[t] for buf, t in node.inputs}
+        step = steps[node.name]
+        if step is None:
+            count("graph.stream_nodes")
+            with span("graph.stream"):
+                outs = interpret_program(node.program, ins, dev)
+        else:
+            outs = run_gemm_step(step, ins)
+        for buf, t in node.outputs:
+            env[t] = outs[buf].to(torch_dtype(g.tensors[t].dtype))
+
+
+def _version(x) -> int | None:
+    """``x._version``; None for what has none (an array, an inference
+    tensor), which is copied every time."""
+    if not isinstance(x, torch.Tensor) or x.is_inference():
+        return None
+    return x._version
+
+
+def _copy_in(rep: Replay, g, inputs: Mapping[str, object]) -> None:
+    """Copy each graph input into its static tensor, unless it is the
+    tensor copied there last, unchanged since."""
+    for t in g.inputs:
+        given = inputs.get(t)
+        version = _version(given)
+        last = rep.copied.get(t)
+        if version is not None and last is not None \
+                and last[0]() is given and last[1] == version:
+            continue
+        x = _input(g, inputs, t)
+        _check_shape(g, t, x)
+        rep.inputs[t].copy_(x)
+        rep.copied[t] = (None if version is None else weakref.ref(given),
+                         version)
+
+
+def _capture(rep: Replay, cg, inputs: Mapping[str, object], dev) -> None:
+    """Bind the static inputs and capture the node loop into
+    ``rep.graph``; a capture that fails raises, and the next call tries
+    again."""
+    g = cg.graph
+    rep.inputs = {t: torch.empty(g.tensors[t].shape,
+                                 dtype=torch_dtype(g.tensors[t].dtype),
+                                 device=dev) for t in g.inputs}
+    rep.copied = {}
+    _copy_in(rep, g, inputs)
+    names = GRAPH_COUNTERS + tuple(LAUNCH_COUNTERS)
+    before = counters()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        env = dict(rep.inputs)
+        _run_nodes(g, node_steps(cg), env, dev)
+    after = counters()
+    rep.counts = {n: after[n] - before[n] for n in names
+                  if after[n] != before[n]}
+    rep.outputs = {t: env[t] for t in g.outputs}
+    rep.graph = graph
+    count("graph.capture")
+
+
+def _advance(counts: dict) -> None:
+    """Advance the counters by what one run counted."""
+    for name, n in counts.items():
+        if name in LAUNCH_COUNTERS:
+            LAUNCH_COUNTERS[name].launches += n
+        else:
+            count(name, n)
+
+
+def _replayed(rep: Replay) -> dict[str, torch.Tensor]:
+    """Replay the graph; clones of its outputs, which the next replay
+    overwrites."""
+    rep.graph.replay()
+    return {t: v.clone() for t, v in rep.outputs.items()}
+
+
+def _replay(rep: Replay, cg, inputs: Mapping[str, object],
+            dev) -> dict[str, torch.Tensor]:
+    """A call after the first on ``dev``: the capture and the replay that
+    gives its result, or the inputs copied in and a replay."""
+    if rep.graph is None:
+        with span("graph.capture"):
+            _capture(rep, cg, inputs, dev)
+            return _replayed(rep)
+    with span("graph.replay"):
+        _copy_in(rep, cg.graph, inputs)
+        out = _replayed(rep)
+    count("graph.replay")
+    _advance(rep.counts)
+    return out
+
+
 def execute_graph(cg, inputs: Mapping[str, object], device=None,
                   return_all: bool = False) -> dict[str, torch.Tensor]:
     """Run every node of the ``CompiledGraph`` ``cg`` in graph order on
@@ -378,39 +553,29 @@ def execute_graph(cg, inputs: Mapping[str, object], device=None,
     same dispatch on the kernels' plain versions).  ``inputs`` may be NumPy
     arrays or tensors; the result is the graph's outputs (with
     ``return_all``, every tensor, inputs included) as tensors on the
-    device, each in its ``TensorSpec`` dtype."""
+    device, each in its ``TensorSpec`` dtype.  On a card, without
+    ``return_all``, the first call on a device runs eagerly, the second
+    captures the node loop as one CUDA graph, and every later call
+    replays it (see the module's docstring)."""
     g = cg.graph
     if g is None:
         raise GraphError("CompiledGraph has no graph attached; "
                          "rebuild via from_dict/compile_graph")
     dev = resolve_device(device)
     steps = node_steps(cg)
+    replays = dev.type == "cuda" and not return_all
+    if replays:
+        dev = torch.device("cuda", torch.cuda.current_device()
+                           if dev.index is None else dev.index)
+        rep = cg.replays.setdefault(dev, Replay())
+        if rep.runs:
+            with torch.cuda.device(dev), span("graph.execute"):
+                return _replay(rep, cg, inputs, dev)
     with span("graph.execute"):
-        env: dict[str, torch.Tensor] = {}
-        for t in g.inputs:
-            if t not in inputs:
-                raise GraphError(f"missing graph input {t!r}")
-            spec = g.tensors[t]
-            x = inputs[t]
-            if not isinstance(x, torch.Tensor):
-                x = torch.tensor(np.asarray(x, dtype=np_dtype(spec.dtype)))
-            x = x.to(dev, torch_dtype(spec.dtype)).contiguous()
-            if tuple(x.shape) != tuple(spec.shape):
-                raise GraphError(f"input {t}: shape {tuple(x.shape)} != "
-                                 f"{spec.shape}")
-            env[t] = x
-        for node in g.nodes:
-            count("graph.nodes")
-            ins = {buf: env[t] for buf, t in node.inputs}
-            step = steps[node.name]
-            if step is None:
-                count("graph.stream_nodes")
-                with span("graph.stream"):
-                    outs = interpret_program(node.program, ins, dev)
-            else:
-                outs = run_gemm_step(step, ins)
-            for buf, t in node.outputs:
-                env[t] = outs[buf].to(torch_dtype(g.tensors[t].dtype))
+        env = _bind(g, inputs, dev)
+        _run_nodes(g, steps, env, dev)
+    if replays:
+        rep.runs += 1
     if return_all:
         return env
     return {t: env[t] for t in g.outputs}

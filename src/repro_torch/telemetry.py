@@ -12,8 +12,9 @@ collector does not walk, up to a cap; spans past the cap are dropped and
 counted.  One thread records: spans nest as the ``with`` statements do.
 
 Counters are plain integers counted whether recording or not, as the kernel
-wrappers' launch counters are: ``count(name)`` adds one, and ``counters()``
-reads them together with the launch counters, where those live.  A reader
+wrappers' launch counters are: ``count(name)`` adds one (``count(name, n)``
+adds n; a name first counted appears then), and ``counters()`` reads them
+together with the launch counters, where those live.  A reader
 takes differences of two ``counters()``.
 
 ``to_profiler_us`` puts a span's time on the profiler's host timeline (the
@@ -171,8 +172,8 @@ def recording():
         _record._finish()
 
 
-def count(name: str) -> None:
-    _counts[name] += 1
+def count(name: str, n: int = 1) -> None:
+    _counts[name] = _counts.get(name, 0) + n
 
 
 def counters() -> dict[str, int]:

@@ -3,7 +3,8 @@ small size on the CPU: the executed graph, fused and unfused, and the
 graph interpreter against the plain float64 reference
 (``models.whisper_block_reference``); the full-width graph's nodes; how the
 executor runs a GEMM node with an epilogue (K1 or K2 once, no (m, n, k)
-buffer); and the executor's spans and counters.
+buffer); the executor's spans and counters; and, on the card only (marker
+``gpu``), its CUDA graph: a replay against the eager path bit for bit.
 
 Tolerance: the graph rounds every tensor to f32 at each node boundary and
 K1 sums in f32, where the reference keeps float64 from end to end; over
@@ -23,6 +24,7 @@ from repro_torch.configs import get_config, get_trace_config
 from repro_torch.graph import (compile_graph, fuse_epilogues, interpret_graph,
                                trace_whisper_decoder, whisper_inputs)
 from repro_torch.graph import execute as ex
+from repro_torch.graph.ir import GraphError
 from repro_torch.graph.trace import GELU_A, GELU_C
 from repro_torch.models import whisper_block_reference as R
 
@@ -282,6 +284,182 @@ def test_spans_and_counters_of_the_executor(stack):
             assert parent == "graph.execute", s
         elif s.name in ("k1", "k2"):
             assert parent == "graph.gemm", s
+
+
+def test_the_cpu_path_never_captures(stack):
+    """Three ``execute(device="cpu")`` calls run the eager path each time:
+    no ``graph.capture`` or ``graph.replay`` counted, no ``Replay`` kept,
+    the same outputs."""
+    cg = stack["cg"][True]
+    before = telemetry.counters()
+    outs = [cg.execute(stack["inputs"], device="cpu") for _ in range(3)]
+    after = telemetry.counters()
+    assert after.get("graph.capture", 0) == before.get("graph.capture", 0)
+    assert after.get("graph.replay", 0) == before.get("graph.replay", 0)
+    assert after["graph.nodes"] - before["graph.nodes"] == \
+        3 * len(cg.graph.nodes)
+    assert cg.replays == {}
+    for out in outs[1:]:
+        assert list(out) == list(outs[0])
+        for t, v in out.items():
+            assert torch.equal(v, outs[0][t]), t
+
+
+def test_a_replay_copies_only_what_changed(stack):
+    """``_copy_in``'s rule, on CPU tensors: an input is copied into its
+    static tensor unless it is the tensor object copied last and its
+    ``_version`` has not moved; a new object, an in-place change (through
+    a view too) and an array are copied."""
+    g = stack["fused"]
+    rep = ex.Replay(inputs={t: torch.zeros(g.tensors[t].shape)
+                            for t in g.inputs})
+    inputs = dict(stack["inputs"])
+    ex._copy_in(rep, g, inputs)
+    for t in g.inputs:
+        assert torch.equal(rep.inputs[t], inputs[t]), t
+    marks = {t: v.clone() for t, v in rep.inputs.items()}
+    for v in rep.inputs.values():
+        v.fill_(-1.0)              # what a copy would overwrite
+    ex._copy_in(rep, g, inputs)    # the same objects, unchanged: no copy
+    assert all(bool((v == -1.0).all()) for v in rep.inputs.values())
+    w = next(t for t in g.inputs if t.startswith("l0."))
+    inputs["x"] = inputs["x"].clone()                  # a new object
+    inputs[w] = inputs[w].clone()
+    inputs[w][:1].add_(1.0)                            # through a view
+    inputs["xa"] = inputs["xa"].numpy()                # an array
+    ex._copy_in(rep, g, inputs)
+    for t in g.inputs:
+        copied = not bool((rep.inputs[t] == -1.0).all())
+        assert copied == (t in ("x", "xa", w)), t
+    assert torch.equal(rep.inputs[w], inputs[w])
+    assert torch.equal(rep.inputs["x"], marks["x"])
+    inputs[w].mul_(2.0)                                # in place
+    ex._copy_in(rep, g, inputs)
+    assert torch.equal(rep.inputs[w], inputs[w])
+    with pytest.raises(GraphError, match="shape"):
+        ex._copy_in(rep, g, dict(inputs, x=torch.zeros(1, 1)))
+    with pytest.raises(GraphError, match="missing"):
+        ex._copy_in(rep, g, {t: v for t, v in inputs.items() if t != "xa"})
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: on one, run PYTHONPATH=src python "
+                    "-m pytest --noconftest -m gpu "
+                    "tests/test_torch_whisper_block.py")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _card_stack(size: str, device):
+    """The small stack of the CPU tests (T 8, 12 frames, 2 layers) or one
+    layer of whisper-medium at its published widths (T 32, 1500 frames),
+    compiled, and two input sets on ``device`` that share the weights."""
+    cfg, T, S, layers = ((get_trace_config("whisper-medium"), 8, 12, 2)
+                         if size == "small" else
+                         (get_config("whisper-medium"), 32, 1500, 1))
+    g, decisions = fuse_epilogues(trace_whisper_decoder(cfg, T, S, layers))
+    cg = compile_graph(g, use_cache=False, decisions=decisions)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = R.init_params(cfg.d_model, cfg.d_ff, cfg.vocab_size, layers,
+                           gen, device)
+    sets = []
+    for _ in range(2):
+        x = torch.randn(T, cfg.d_model, generator=gen, device=device)
+        xa = torch.randn(S, cfg.d_model, generator=gen, device=device)
+        sets.append(whisper_inputs(g, params, x, xa))
+        params = sets[-1]
+    return cg, sets
+
+
+def _counted(fn):
+    """What ``fn`` returns, and how far it moved each counter."""
+    before = telemetry.counters()
+    out = fn()
+    torch.cuda.synchronize()
+    after = telemetry.counters()
+    return out, {k: after[k] - before.get(k, 0) for k in after
+                 if after[k] != before.get(k, 0)}
+
+
+def _eager(cg, inputs):
+    """The eager path's outputs (``return_all`` never captures)."""
+    env = cg.execute(inputs, return_all=True)
+    return {t: env[t] for t in cg.graph.outputs}
+
+
+def _same(got, want) -> bool:
+    return list(got) == list(want) and all(torch.equal(v, want[t])
+                                           for t, v in got.items())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", ["small", "full"])
+def test_a_replay_gives_the_eager_bits_on_card(cuda_device, size):
+    """Calls 1 (eager), 2 (capture) and 3 on (replay) on two input sets
+    give the eager path's outputs bit for bit; a returned output is not
+    overwritten by a later call; an in-place change to a weight shows in
+    the next replay, equal to an eager run with it; each call advances
+    the executor's and K1/K2's launch counters as an eager call does, with
+    one ``graph.capture`` and n - 2 ``graph.replay``; ``return_all`` never
+    captures."""
+    cg, (one, two) = _card_stack(size, cuda_device)
+    want = [_eager(cg, one), _eager(cg, two)]
+    assert cg.replays == {}
+    _, eager_counts = _counted(lambda: cg.execute(one))
+    assert set(eager_counts) >= {"graph.nodes", "gemm.launches"}
+    rep = cg.replays[cuda_device]
+    assert rep.runs == 1 and rep.graph is None
+    outs, calls = [], 0
+    for inputs, w in ((two, want[1]), (one, want[0]), (two, want[1]),
+                      (two, want[1]), (one, want[0])):
+        out, counts = _counted(lambda: cg.execute(inputs))
+        calls += 1
+        kind = "graph.capture" if calls == 1 else "graph.replay"
+        assert counts == {**eager_counts, kind: 1}, calls
+        assert _same(out, w), calls
+        outs.append((out, {t: v.clone() for t, v in out.items()}))
+    assert rep.graph is not None
+    for out, kept in outs:                 # no output aliases another
+        assert _same(out, kept)
+    w = next(t for t in cg.graph.inputs if t.startswith("l0.") and
+             t.endswith("wk0"))
+    one[w].mul_(0.5)                       # shared by both input sets
+    assert _same(cg.execute(two), _eager(cg, two))
+    assert not _same(_eager(cg, two), want[1])
+    _, counts = _counted(lambda: [cg.execute(one, return_all=True)
+                                  for _ in range(3)])
+    assert "graph.capture" not in counts and "graph.replay" not in counts
+
+
+@pytest.mark.gpu
+def test_return_all_never_captures_on_card(cuda_device):
+    cg, (one, _) = _card_stack("small", cuda_device)
+    _, counts = _counted(lambda: [cg.execute(one, return_all=True)
+                                  for _ in range(3)])
+    assert "graph.capture" not in counts and "graph.replay" not in counts
+    assert counts["graph.nodes"] == 3 * len(cg.graph.nodes)
+    assert cg.replays == {}
+
+
+@pytest.mark.gpu
+def test_spans_of_the_capture_and_the_replay_on_card(cuda_device):
+    """Call 2 records ``graph.capture`` below ``graph.execute`` with the
+    node loop's spans below it; call 3 ``graph.replay`` and no node span."""
+    cg, (one, two) = _card_stack("small", cuda_device)
+    cg.execute(one)
+    for inputs, kind in ((two, "graph.capture"), (one, "graph.replay")):
+        with telemetry.recording() as rec:
+            cg.execute(inputs)
+        spans = rec.spans()
+        assert spans[0].name == "graph.execute" and spans[0].parent == -1
+        assert spans[1].name == kind and spans[1].parent == 0
+        names = {s.name for s in spans}
+        if kind == "graph.replay":
+            assert names == {"graph.execute", "graph.replay"}
+        else:
+            assert {"graph.gemm", "graph.stream"} <= names
+            assert all(s.parent >= 1 for s in spans[2:])
 
 
 def test_the_cli_validates_the_whisper_stack(capsys):
