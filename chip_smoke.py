@@ -313,10 +313,10 @@ import time
 import numpy as np
 import torch
 
+from portbench.peaks import PEAK_BYTES, PEAK_FLOPS
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-HBM_BW = 3.35e12
-PEAK = {torch.float32: 67e12, torch.bfloat16: 989e12}
 GEMM_SIZES = [(1024, 128, 1024), (2048, 64, 2048), (1760, 128, 1760),
               (2560, 64, 2560), (5124, 700, 2048), (3072, 128, 1024),
               (35, 700, 2048), (7680, 1, 2560)]
@@ -525,9 +525,18 @@ def device_ms(fn, reps: int, parts=None, main: str = "main",
 
 def bound(nbytes: float, flops: float, dtype: torch.dtype) -> tuple[float, str]:
     """(least time in ms, what bounds it) on the data-sheet peaks."""
-    t_bytes, t_ops = nbytes / HBM_BW, flops / PEAK[dtype]
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = flops / PEAK_FLOPS[dtype_name(dtype)]
     return (max(t_bytes, t_ops) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def launch_counts() -> dict[str, int]:
+    """The port's launch counters as they read now, named as the
+    ``launches`` lines name them (``gemm.launches`` as ``gemm``)."""
+    from repro_torch.telemetry import LAUNCH_COUNTERS, counters
+    now = counters()
+    return {n.removesuffix(".launches"): now[n] for n in LAUNCH_COUNTERS}
 
 
 def mismatch(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float
@@ -646,8 +655,7 @@ def moe_ffns(model) -> list:
 
 def serve_bounds(model, B: int, T: int, new: int) -> dict:
     """Least times of the serve run on the data-sheet peaks, in the
-    activation dtype, each the larger of its bytes over HBM_BW and its
-    operations over the peak.  The prefill reads each weight it needs once
+    activation dtype (``bound``).  The prefill reads each weight it needs once
     (the experts that B*T tokens can reach), writes the KV cache and the
     recurrent state once, and does 2 x the parameters a token meets
     (outside the embedding table; top_k of the experts) x B*T operations,
@@ -707,18 +715,14 @@ def serve_bounds(model, B: int, T: int, new: int) -> dict:
     prefill_bytes = (needs(B * T) * size + read + kv(T) + state
                      + B * T * cfg.d_model * size)
 
-    def least(nbytes, nops):
-        return max((nbytes / HBM_BW * 1e3, "bytes"),
-                   (nops / PEAK[dt] * 1e3, "operations"))
-
     rows = B * cfg.d_model * size
     step_bytes = needs(B) * size + kv(S) + 2 * state + rows
     as_run_bytes = per_token * size + kv(S) + 2 * state + rows
-    decode = least(step_bytes, 2.0 * active * B)
-    decode_as_run = least(as_run_bytes, 2.0 * per_token * B)
-    prefill = least(prefill_bytes, ops)
+    decode = bound(step_bytes, 2.0 * active * B, dt)
+    decode_as_run = bound(as_run_bytes, 2.0 * per_token * B, dt)
+    prefill = bound(prefill_bytes, ops, dt)
     prefill_as_run = (T * decode_as_run[0], "bytes") \
-        if cfg.family == "ssm" else least(prefill_bytes, ops_as_run)
+        if cfg.family == "ssm" else bound(prefill_bytes, ops_as_run, dt)
     return {"prefill_bound_ms": prefill[0], "prefill_bound_by": prefill[1],
             "decode_bound_ms": decode[0], "decode_bound_by": decode[1],
             "prefill_bound_as_run_ms": prefill_as_run[0],
@@ -1102,12 +1106,12 @@ def train_full(dev, seed: int) -> dict:
         "step_ms_median": step_ms, "step_ms_min": timed[0],
         "step_ms_max": timed[-1], "tok_per_s": tokens / (step_ms / 1e3),
         "model_flops": flops, "model_flops_as_run": flops_as_run,
-        "mfu": flops / (step_ms / 1e3) / PEAK[torch.bfloat16],
-        "bound_ms": flops / PEAK[torch.bfloat16] * 1e3,
-        "bound_as_run_ms": flops_as_run / PEAK[torch.bfloat16] * 1e3,
+        "mfu": flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"],
+        "bound_ms": flops / PEAK_FLOPS["bfloat16"] * 1e3,
+        "bound_as_run_ms": flops_as_run / PEAK_FLOPS["bfloat16"] * 1e3,
         "bound_by": "operations",
         "adamw_ms": adamw_ms, "adamw_bytes": adamw_bytes,
-        "adamw_bound_ms": adamw_bytes / HBM_BW * 1e3,
+        "adamw_bound_ms": adamw_bytes / PEAK_BYTES * 1e3,
         "profiled_steps": TRAIN_PROFILED,
         "profiled_event_ms": prof_ms, "profiled_device_ms": dev_ms,
         "device_busy_share": dev_ms / prof_ms if prof_ms else None,
@@ -1451,7 +1455,6 @@ def run_servesim(dev, seed: int, failures: list) -> list:
     from repro_torch.compile.driver import clear_memo
     from repro_torch.graph import block_inputs
     from repro_torch.kernels import cuda
-    from repro_torch.kernels.gemm import gemm
     from repro_torch.serve import (FifoOnlineScheduler, ServeParams,
                                    ServingPool, StaticBatchScheduler,
                                    generate_requests, make_static_scheduler,
@@ -1514,10 +1517,10 @@ def run_servesim(dev, seed: int, failures: list) -> list:
     for (arch, bucket), art in sorted(pool.entries.items()):
         inputs = {t: torch.from_numpy(v).to(dev)
                   for t, v in block_inputs(art.cg.graph).items()}
-        before = gemm.launches
+        before = launch_counts()["gemm"]
         env = art.cg.execute(inputs, device=dev, return_all=True)
         entries.append({"art": art, "inputs": inputs, "env": env,
-                        "k1_launches": gemm.launches - before,
+                        "k1_launches": launch_counts()["gemm"] - before,
                         "gemm_nodes": gemm_nodes(art.cg)})
         if entries[-1]["k1_launches"] != entries[-1]["gemm_nodes"]:
             failures.append(f"servesim {arch}/T{bucket}: "
@@ -1564,7 +1567,6 @@ def run_cli(failures: list) -> None:
     from repro_torch.configs import get_trace_config
     from repro_torch.graph import compile_graph, fuse_epilogues, trace_block
     from repro_torch.kernels import cuda
-    from repro_torch.kernels.gemm import gemm
 
     out = cuda.BUILD_DIR / f"cli-{os.getpid()}-{time.time_ns()}"
     out.mkdir(parents=True, exist_ok=True)
@@ -1572,7 +1574,7 @@ def run_cli(failures: list) -> None:
         for argv in CLI_RUNS:
             path = out / ("_".join(a.strip("-") for a in argv) + ".json")
             buf = io.StringIO()
-            before = gemm.launches
+            before = launch_counts()["gemm"]
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
                 try:
@@ -1580,7 +1582,7 @@ def run_cli(failures: list) -> None:
                 except Exception as e:      # reported, and gated below
                     rc = repr(e)
             seconds = time.perf_counter() - t0
-            k1 = gemm.launches - before
+            k1 = launch_counts()["gemm"] - before
             report = json.loads(path.read_text()) if path.exists() else {}
             lines = [ln for ln in buf.getvalue().strip().splitlines()
                      if not ln.startswith("# report:")]
@@ -1655,15 +1657,13 @@ def main() -> int:
     from repro_torch.kernels import cuda, ref
     from repro_torch.kernels.gemm import (MIN_SPLIT_STEPS, block_tile,
                                           device_sms, gemm, gemm_bias_act,
-                                          gemm_launch, gemm_reduce,
-                                          gemm_transpose, kernel_resources,
+                                          gemm_launch, kernel_resources,
                                           operand_route, route_tile,
                                           tuned_block, tuned_record)
     from repro_torch.kernels.gru import (STEP_KC, FusedGRU, PARAM_NAMES,
                                          device_smem, device_split, gru_cell,
-                                         gru_cell_reduce, gru_seq,
-                                         gru_seq_launch, pack_w, seq_route,
-                                         step_route)
+                                         gru_seq, gru_seq_launch, pack_w,
+                                         seq_route, step_route)
     from repro_torch.kernels.ops import (gru_tile, plan_gemm, plan_gru,
                                          scheduled_gemm)
     from repro_torch.models.traceable import block_reference
@@ -1727,10 +1727,6 @@ def main() -> int:
             "h0": card_uniform((wb, wh))}
     torch.cuda.synchronize()
 
-    counters = {"gemm": gemm, "gemm_bias_act": gemm_bias_act,
-                "gru_cell": gru_cell, "gru_cell_reduce": gru_cell_reduce,
-                "gru_seq": gru_seq, "gemm_transpose": gemm_transpose,
-                "gemm_reduce": gemm_reduce}
     #: the counters of the kernels' own wrappers
     wrappers = ("gemm", "gemm_bias_act", "gru_cell", "gru_seq")
     phase_launches = {}
@@ -1762,13 +1758,12 @@ def main() -> int:
 
     @contextlib.contextmanager
     def counted(phase: str, path: tuple[str, ...]):
-        """Counters at 0 just before the phase, read just after it; every
+        """Counters read just before the phase and just after it; every
         kernel of the phase's path must have launched."""
-        for c in counters.values():
-            c.launches = 0
+        before = launch_counts()
         yield
         torch.cuda.synchronize()
-        got = {name: c.launches for name, c in counters.items()}
+        got = {name: v - before[name] for name, v in launch_counts().items()}
         phase_launches[phase] = got
         emit({"phase": phase, "launches": got})
         missing = [name for name in path if got[name] == 0]
@@ -1953,9 +1948,6 @@ def main() -> int:
     # ---- main path, phase plan: the compiler's tile ----------------------
     empty = cuda.BUILD_DIR / f"tuning-empty-{os.getpid()}.json"
     set_default_cache(TuningCache(str(empty)))
-    def snapshot():
-        return {name: c.launches for name, c in counters.items()}
-
     with counted("plan", ("gemm", "gemm_bias_act", "gru_cell",
                           "gru_cell_reduce", "gru_seq")):
         for c in gemm_cases:
@@ -1964,9 +1956,9 @@ def main() -> int:
             """The sequence through ``FusedGRU``, and the launches of each
             kernel's wrapper it made (K2's transposing pass and split-K
             reduce and K3's reduce are parts of those launches)."""
-            before = snapshot()
+            before = launch_counts()
             out = model(xs, h0)
-            return out, {n: v - before[n] for n, v in snapshot().items()
+            return out, {n: v - before[n] for n, v in launch_counts().items()
                          if v > before[n] and n in wrappers}
 
         for c in gru_cases:
@@ -2045,10 +2037,10 @@ def main() -> int:
     # ---- main path, phase graph: the compiled blocks on the card ---------
     with counted("graph", ("gemm",)):
         for b in blocks:
-            before = counters["gemm"].launches
+            before = launch_counts()["gemm"]
             b["env"] = b["cg"].execute(b["inputs"], device=dev,
                                        return_all=True)
-            b["k1_launches"] = counters["gemm"].launches - before
+            b["k1_launches"] = launch_counts()["gemm"] - before
     for b in blocks:
         if b["k1_launches"] != b["gemm_nodes"]:
             failures.append(f"graph {b['cg'].name}: {b['k1_launches']} K1 "
@@ -2552,7 +2544,7 @@ def main() -> int:
         run_cli(failures)
 
     launches = {name: sum(p[name] for p in phase_launches.values())
-                for name in counters}
+                for name in wrappers}
     kernels = [
         entry("gemm", "src/repro_torch/csrc/gemm.cu",
               "src/repro/kernels/gemm.py:103", launches["gemm"], k1),

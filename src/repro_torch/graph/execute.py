@@ -59,9 +59,9 @@ with the node loop's spans below it) or ``graph.replay`` (copies in, the
 replay, the clones out).  The counters ``graph.nodes``,
 ``graph.gemm_nodes`` (K1 or K2), ``graph.k2_nodes`` (K2 among them) and
 ``graph.stream_nodes`` count the nodes run; ``graph.capture`` and
-``graph.replay`` count captures and replays.  A replay advances those four
-and K1/K2's launch counters by what its capture counted, since the card
-runs those launches again.
+``graph.replay`` count captures and replays.  A replay advances every
+counter that moved during its capture by what it counted there, since the
+card runs those nodes and launches again.
 """
 from __future__ import annotations
 
@@ -74,8 +74,7 @@ import torch
 
 from ..core.ir import Access, IRError, Program
 from ..kernels.cuda import resolve_device
-from ..kernels.gemm import (ACTS, gemm, gemm_bias_act, gemm_reduce,
-                            gemm_transpose)
+from ..kernels.gemm import ACTS, gemm, gemm_bias_act
 from ..kernels.ops import launch_config
 from ..telemetry import count, counters, span
 from .ir import GraphError, np_dtype
@@ -392,17 +391,6 @@ def node_steps(cg) -> dict:
     return cg.steps
 
 
-#: the counters one ``execute`` advances: the executor's, then the
-#: wrappers' launch counters (``telemetry.counters()`` names) and where
-#: each lives
-GRAPH_COUNTERS = ("graph.nodes", "graph.gemm_nodes", "graph.k2_nodes",
-                  "graph.stream_nodes")
-LAUNCH_COUNTERS = {"gemm.launches": gemm,
-                   "gemm_bias_act.launches": gemm_bias_act,
-                   "gemm_transpose": gemm_transpose,
-                   "gemm_reduce": gemm_reduce}
-
-
 @dataclass(eq=False)
 class Replay:
     """A ``CompiledGraph``'s CUDA graph on one device: eager ``runs`` so
@@ -500,15 +488,14 @@ def _capture(rep: Replay, cg, inputs: Mapping[str, object], dev) -> None:
                                  device=dev) for t in g.inputs}
     rep.copied = {}
     _copy_in(rep, g, inputs)
-    names = GRAPH_COUNTERS + tuple(LAUNCH_COUNTERS)
     before = counters()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         env = dict(rep.inputs)
         _run_nodes(g, node_steps(cg), env, dev)
     after = counters()
-    rep.counts = {n: after[n] - before[n] for n in names
-                  if after[n] != before[n]}
+    rep.counts = {n: v - before.get(n, 0) for n, v in after.items()
+                  if v != before.get(n, 0)}
     rep.outputs = {t: env[t] for t in g.outputs}
     rep.graph = graph
     count("graph.capture")
@@ -517,10 +504,7 @@ def _capture(rep: Replay, cg, inputs: Mapping[str, object], dev) -> None:
 def _advance(counts: dict) -> None:
     """Advance the counters by what one run counted."""
     for name, n in counts.items():
-        if name in LAUNCH_COUNTERS:
-            LAUNCH_COUNTERS[name].launches += n
-        else:
-            count(name, n)
+        count(name, n)
 
 
 def _replayed(rep: Replay) -> dict[str, torch.Tensor]:

@@ -23,8 +23,8 @@ route's ``default_tile`` when neither gives one.  When
 a launch's output tiles are fewer than the card's SMs, K is split
 (``split_k``): the main loop writes f32 partials of each K slice and a
 reduce kernel sums them in slice order and applies the epilogue.  One C
-call launches the whole sequence; ``gemm_transpose`` and ``gemm_reduce``
-count the transposing passes and reduces it ran.
+call launches the whole sequence; the counters ``gemm_transpose`` and
+``gemm_reduce`` count the transposing passes and reduces it ran.
 
 ``projection`` is K2 without its rounding: A @ B + bias stored in f32 for
 f32 or bf16 operands.  It is K4's input projection (``gru.gru_seq``), and
@@ -41,7 +41,7 @@ from dataclasses import dataclass
 import torch
 
 from ..core.sysgraph import GPU_SMS_PER_CLUSTER
-from ..telemetry import span
+from ..telemetry import count, span
 from .cuda import check, library, ptxas_report, stream_handle
 from .ref import gemm_bias_act_ref, gemm_ref
 
@@ -251,17 +251,6 @@ def device_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-class Counter:
-    """A launch count for a kernel that runs inside K1's and K2's launch
-    sequence rather than behind a wrapper of its own."""
-
-    launches = 0
-
-
-#: the wgmma route's transposing pass of B, and split-K's reduce
-gemm_transpose = Counter()
-gemm_reduce = Counter()
-
 #: the spans of one K1 or K2 launch, by the wrapper's name: its allocation
 #: and its C call
 _SPANS = {"gemm": ("k1.alloc", "k1.call"),
@@ -336,8 +325,10 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor,
             None if bias is None else bias.data_ptr(), ACTS[fn],
             c.data_ptr(), base + bt_bytes if ws_bytes else None, m, n, k,
             stream_handle(dev)), name)
-    gemm_transpose.launches += route is WGMMA
-    gemm_reduce.launches += split > 1
+    if route is WGMMA:
+        count("gemm_transpose")
+    if split > 1:
+        count("gemm_reduce")
     return c
 
 
@@ -350,7 +341,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor,
         if a.device.type == "cpu":
             return gemm_ref(a, b)
         c = _launch("gemm", a, b, None, "", route, tile)
-    gemm.launches += 1
+    count("gemm.launches")
     return c
 
 
@@ -392,9 +383,5 @@ def _bias_act(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor, fn: str,
             return gemm_bias_act_ref(a, b, bias, fn, out_dtype)
         c = _launch("gemm_bias_act", a, b, bias.float().contiguous(), fn,
                     route, tile, out_dtype)
-    gemm_bias_act.launches += 1
+    count("gemm_bias_act.launches")
     return c
-
-
-gemm.launches = 0
-gemm_bias_act.launches = 0

@@ -6,7 +6,7 @@ all three gates and the state update of one step, over a grid of
 (x W) and H (h U) is cut into ``gru_split`` slices so that a step fills
 the card in whole waves; with more than one slice a second kernel adds the
 slices' partial sums in slice order and applies the gate epilogue
-(``gru_cell_reduce`` counts it).
+(the counter ``gru_cell_reduce`` counts it).
 
 ``gru_seq`` (K4) takes one of two routes, by a rule fixed from the shapes
 before any launch (``seq_route``), never as a fallback:
@@ -47,10 +47,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..telemetry import span
+from ..telemetry import count, span
 from .cuda import (MAX_SMEM_BYTES, check, library, resolve_device,
                    stream_handle)
-from .gemm import DTYPES, H100_SMS, Counter, device_sms, projection
+from .gemm import DTYPES, H100_SMS, device_sms, projection
 from .ref import gru_cell_ref, gru_seq_hoisted_ref
 
 PARAM_NAMES = ("Wr", "Ur", "Wz", "Uz", "Wn", "Un", "br", "bz", "bnx", "bnh")
@@ -75,9 +75,6 @@ SEQ_MAX_LANES = SEQ_KC // 4
 #: the constants above as ``csrc/gru.cu`` defines them, in the order its
 #: ``repro_gru_constants`` writes them; checked when the library is bound
 C_CONSTANTS = (STEP_KC, SEQ_THREADS, SEQ_KC, SEQ_STAGES, SEQ_RB, SEQ_MAX_B)
-
-#: K3's second kernel: the split step's reduce
-gru_cell_reduce = Counter()
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -421,12 +418,10 @@ def gru_cell(x: torch.Tensor, h: torch.Tensor, params: dict,
                 *(params[n].data_ptr() for n in PARAM_NAMES),
                 out.data_ptr(), None if part is None else part.data_ptr(),
                 B, E, H, stream_handle(x.device)), "gru_cell")
-    gru_cell.launches += 1
-    gru_cell_reduce.launches += split > 1
+    count("gru_cell.launches")
+    if split > 1:
+        count("gru_cell_reduce")
     return out
-
-
-gru_cell.launches = 0
 
 
 def gru_seq(xs: torch.Tensor, h0: torch.Tensor, params: dict,
@@ -512,11 +507,8 @@ def _recurrence(g: torch.Tensor, h0: torch.Tensor, params: dict,
                 params["bnh"].data_ptr(), scratch.data_ptr(),
                 out[b0].data_ptr(), scratch.data_ptr() + buf_bytes, T, nb, B,
                 H, launch.hp, stream_handle(dev)), "gru_seq")
-        gru_seq.launches += 1
+        count("gru_seq.launches")
     return out
-
-
-gru_seq.launches = 0
 
 
 class FusedGRU(nn.Module):

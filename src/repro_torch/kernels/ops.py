@@ -99,9 +99,8 @@ def gru_tile(block: tuple[int, int]) -> tuple[int, int]:
 
 
 def plan_gemm(m: int, n: int, k: int, dtype: torch.dtype = torch.float32,
-              approach: str = "greedy", graph: SystemGraph | None = None,
-              use_cache: bool = True, route: Route | None = None
-              ) -> tuple[LaunchConfig, float]:
+              graph: SystemGraph | None = None, use_cache: bool = True,
+              route: Route | None = None) -> tuple[LaunchConfig, float]:
     """Compile an (m, n, k) GEMM against ``graph`` (default ``gpu_sm(8)``)
     through ``repro_torch.compile``; return (its K1 launch on ``route``,
     default ``gemm_route(dtype, k)``, and the modeled seconds).
@@ -125,7 +124,7 @@ def plan_gemm(m: int, n: int, k: int, dtype: torch.dtype = torch.float32,
                                                              block)]}
             cost = rec.cost
         else:
-            art = compile_gemm(m, n, k, approach=approach, graph=graph,
+            art = compile_gemm(m, n, k, approach="greedy", graph=graph,
                                use_cache=use_cache)
             lowering, cost = art.lowering, art.cost
         with span("plan.launch"):
@@ -133,14 +132,14 @@ def plan_gemm(m: int, n: int, k: int, dtype: torch.dtype = torch.float32,
 
 
 def plan_gru(batch: int, hidden: int, inp: int | None = None,
-             approach: str = "greedy", graph: SystemGraph | None = None
+             graph: SystemGraph | None = None
              ) -> tuple[tuple[int, int], float]:
     """Compile the GRU cell through ``repro_torch.compile``; return the
     (bb, bh) batch/hidden tile of its matmul stage + the modeled seconds.
     Raises ``CompileError`` if no matmul-shaped instruction was
     selected."""
     with span("ops.plan"):
-        art = compile_gru(batch, hidden, inp, approach=approach, graph=graph)
+        art = compile_gru(batch, hidden, inp, approach="greedy", graph=graph)
         with span("plan.launch"):
             for prefix in ("fused.matmul", "mxu.matmul"):
                 try:

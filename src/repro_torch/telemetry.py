@@ -11,11 +11,11 @@ share that id.  Spans are kept in flat ``array``s, which the garbage
 collector does not walk, up to a cap; spans past the cap are dropped and
 counted.  One thread records: spans nest as the ``with`` statements do.
 
-Counters are plain integers counted whether recording or not, as the kernel
-wrappers' launch counters are: ``count(name)`` adds one (``count(name, n)``
-adds n; a name first counted appears then), and ``counters()`` reads them
-together with the launch counters, where those live.  A reader
-takes differences of two ``counters()``.
+Counters are plain integers in one store, counted whether recording or
+not: ``count(name)`` adds one (``count(name, n)`` adds n; a name first
+counted appears then).  The kernel wrappers count their launches here
+(``LAUNCH_COUNTERS``), the compiler its memo and the graph executor its
+nodes.  A reader takes differences of two ``counters()``.
 
 ``to_profiler_us`` puts a span's time on the profiler's host timeline (the
 microseconds of ``FunctionEvent.time_range``, counted from the trace's
@@ -37,10 +37,17 @@ from typing import NamedTuple
 #: spans one recording keeps; later ones are dropped and counted
 CAP = 1 << 20
 
-#: the counters of this module; the launch counters live in the wrappers
-_counts = {"compile.memo_hit": 0, "compile.memo_sig": 0,
-           "compile.fresh": 0, "graph.nodes": 0, "graph.gemm_nodes": 0,
-           "graph.k2_nodes": 0, "graph.stream_nodes": 0}
+#: the kernel wrappers' launch counters: K1, K2 (``projection`` counts as
+#: K2), K3 and its split step's reduce, K4, then the passes inside K1's and
+#: K2's launch (the wgmma route's transpose of B, split-K's reduce)
+LAUNCH_COUNTERS = ("gemm.launches", "gemm_bias_act.launches",
+                   "gru_cell.launches", "gru_cell_reduce", "gru_seq.launches",
+                   "gemm_transpose", "gemm_reduce")
+#: every counter, by name; these read 0 from import
+_counts = dict.fromkeys(("compile.memo_hit", "compile.memo_sig",
+                         "compile.fresh", "graph.nodes", "graph.gemm_nodes",
+                         "graph.k2_nodes", "graph.stream_nodes")
+                        + LAUNCH_COUNTERS, 0)
 
 
 class Span(NamedTuple):
@@ -177,17 +184,8 @@ def count(name: str, n: int = 1) -> None:
 
 
 def counters() -> dict[str, int]:
-    """This module's counters and the kernel wrappers' launch counters, as
-    they read now."""
-    from .kernels import gemm, gru
-    return {**_counts,
-            "gemm.launches": gemm.gemm.launches,
-            "gemm_bias_act.launches": gemm.gemm_bias_act.launches,
-            "gemm_transpose": gemm.gemm_transpose.launches,
-            "gemm_reduce": gemm.gemm_reduce.launches,
-            "gru_cell.launches": gru.gru_cell.launches,
-            "gru_cell_reduce": gru.gru_cell_reduce.launches,
-            "gru_seq.launches": gru.gru_seq.launches}
+    """Every counter as it reads now."""
+    return dict(_counts)
 
 
 def to_profiler_us(t_ns: int, trace_start_ns: int) -> float:

@@ -7,11 +7,12 @@ import torch
 from repro.search.tune import DEEPBENCH_GEMM_SIZES
 from repro_torch.compile import CompileError, compile_gemm
 from repro_torch.core.sysgraph import gpu_sm
+from repro_torch import telemetry
 from repro_torch.kernels import cuda
 from repro_torch.kernels.gemm import (ROUTES, gemm, gemm_bias_act,
                                       gemm_route, split_k)
 from repro_torch.kernels.gru import (PARAM_NAMES, TILE_B, TILE_H, FusedGRU,
-                                     gru_cell, gru_cell_reduce, gru_seq)
+                                     gru_cell, gru_seq)
 from repro_torch.kernels.ops import (MAX_SMEM_BYTES, gru_tile, launch_config,
                                      plan_gemm, plan_gru, scheduled_gemm,
                                      scheduled_gru)
@@ -106,8 +107,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_cpu_path_launches_nothing():
-    gemm.launches = gemm_bias_act.launches = 0
-    gru_cell.launches = gru_cell_reduce.launches = gru_seq.launches = 0
+    before = telemetry.counters()
     a, b = torch.rand(40, 24), torch.rand(24, 56)
     torch.testing.assert_close(scheduled_gemm(a, b)[0], a @ b)
     bias = torch.rand(56)
@@ -120,8 +120,9 @@ def test_cpu_path_launches_nothing():
     torch.testing.assert_close(out, scheduled_gru(xs, h0, model))
     torch.testing.assert_close(gru_cell(xs[0], h0, model.params()),
                                gru_seq(xs[:1], h0, model.params()))
-    assert (gemm.launches, gemm_bias_act.launches, gru_cell.launches,
-            gru_cell_reduce.launches, gru_seq.launches) == (0, 0, 0, 0, 0)
+    after = telemetry.counters()
+    assert {n: after[n] - before[n] for n in telemetry.LAUNCH_COUNTERS} \
+        == dict.fromkeys(telemetry.LAUNCH_COUNTERS, 0)
 
 
 def test_wrappers_reject_what_no_kernel_takes():

@@ -3,7 +3,12 @@ CPU: off it records nothing; on, spans nest with their parents and request
 ids, self times add up, the cap drops and counts; the compiler's memo and
 pass spans, the span tree of each entry's plain path, and the clock the
 profiler's trace shares."""
+import json
+import os
+import subprocess
+import sys
 import time
+from pathlib import Path
 
 import pytest
 import torch
@@ -11,10 +16,10 @@ import torch
 from repro_torch import telemetry
 from repro_torch.compile import compile_gemm
 from repro_torch.compile.driver import clear_memo
-from repro_torch.kernels import gemm as gemm_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels.gru import FusedGRU, gru_cell
 
+ROOT = Path(__file__).resolve().parent.parent
 PASSES = ["compile.map", "compile.select", "compile.schedule",
           "compile.verify", "compile.lower"]
 
@@ -137,19 +142,46 @@ def test_memo_hit_and_fresh_counters():
     assert after["compile.fresh"] - before["compile.fresh"] == 1
 
 
-def test_counters_read_the_launch_counters_where_they_live(monkeypatch):
-    names = {"gemm.launches": (gemm_mod.gemm, "launches"),
-             "gemm_transpose": (gemm_mod.gemm_transpose, "launches"),
-             "gru_seq.launches": (ops.gru_seq, "launches")}
-    for key, (obj, attr) in names.items():
-        monkeypatch.setattr(obj, attr, getattr(obj, attr) + 5)
-        assert telemetry.counters()[key] == getattr(obj, attr)
-    assert set(telemetry.counters()) == {
+def test_counters_are_one_store_that_holds_every_name(monkeypatch):
+    monkeypatch.setattr(telemetry, "_counts", dict(telemetry._counts))
+    before = telemetry.counters()
+    assert set(before) - {"graph.capture", "graph.replay"} == {
         "compile.memo_hit", "compile.memo_sig", "compile.fresh",
         "graph.nodes", "graph.gemm_nodes", "graph.k2_nodes",
         "graph.stream_nodes", "gemm.launches",
         "gemm_bias_act.launches", "gemm_transpose", "gemm_reduce",
         "gru_cell.launches", "gru_cell_reduce", "gru_seq.launches"}
+    assert set(telemetry.LAUNCH_COUNTERS) <= set(before)
+    assert all(v >= 0 for v in before.values())
+    telemetry.count("gemm.launches", 3)
+    after = telemetry.counters()
+    assert {n: after[n] - before[n] for n in before if after[n] != before[n]} \
+        == {"gemm.launches": 3}
+
+
+def test_importing_telemetry_loads_no_other_layer():
+    code = ("import json, sys, repro_torch.telemetry; "
+            "print(json.dumps(sorted(sys.modules)))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, check=True,
+                         timeout=120)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "repro_torch.telemetry" in loaded
+    assert not [m for m in loaded if m.split(".")[:2] in (
+        ["repro_torch", "kernels"], ["repro_torch", "graph"],
+        ["repro_torch", "compile"])]
+
+
+def test_a_replay_advances_the_counters_its_capture_moved(monkeypatch):
+    from repro_torch.graph.execute import _advance
+    monkeypatch.setattr(telemetry, "_counts", dict(telemetry._counts))
+    before = telemetry.counters()
+    _advance({"gemm.launches": 4, "graph.nodes": 9})
+    after = telemetry.counters()
+    assert {n: v - before.get(n, 0) for n, v in after.items()
+            if v != before.get(n, 0)} == {"gemm.launches": 4,
+                                          "graph.nodes": 9}
 
 
 def test_a_fresh_compile_spans_its_passes_in_order():
