@@ -2225,7 +2225,7 @@ def main() -> int:
         proj_cfg, _ = plan_gemm(STEPS * batch, 3 * hidden, inp, graph=graph)
         seq_launch = gru_seq_launch(batch, inp, hidden, sms, smem_limit)
         seq_res = gru_resources(
-            rf"gru_seq_kernelIfLb{int(hidden % 4 == 0)}E")
+            rf"gru_seq_kernelIfLb{int(hidden % 4 == 0)}ELi0E")
         # K2 at the projection's shape, held against its plain version at
         # K2's f32 tolerance: G's early rows fade from h_T, so the sequence's
         # check alone would not see a fault there
@@ -2383,7 +2383,8 @@ def main() -> int:
                   "u_bytes_on_chip": b_launch.u_bytes_on_chip,
                   "u_bytes": b_launch.u_bytes},
               "seq_resources": gru_resources(
-                  rf"gru_seq_kernelI13__nv_bfloat16Lb{int(hidden % 8 == 0)}E"),
+                  rf"gru_seq_kernelI13__nv_bfloat16Lb{int(hidden % 8 == 0)}"
+                  rf"ELi{-(-batch // 8) * 8}E"),
               "seq_ms": b_seq_ms, "seq_device_ms": b_seq_dev,
               "seq_plain_ms": b_seq_plain,
               "seq_library_ms": b_lib["seq_ms"],

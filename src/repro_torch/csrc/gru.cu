@@ -39,35 +39,61 @@
 //
 // Replaces src/repro/kernels/gru.py::gru_seq (a lax.scan of K3).
 //
-// What bounds it on an H100: operations, 2 B 3H (E + H) FLOPs a step, and
-// the T steps depend on each other.  The x W half has no such dependence;
-// the h U half (0.62 GFLOP a step at B = 32, H = 1792: 9.2 us at 67
-// TFLOP/s) is on the critical path, beside a per-step latency chain (an L2
-// round trip for h, the epilogue, a grid barrier) of a few microseconds.
-//
 // x W does not depend on h, so the wrapper computes it for all T steps in
 // one product before this kernel (K2, kernels/gru.py::gru_seq):
 // G = xs [T B, E] @ [Wr|Wz|Wn] + [br|bz|bnx].  bnx folds into G because it
 // sits outside r (..); bnh does not.  This kernel then runs all T steps of
 // the recurrence in one cooperative launch, one block per SM at most: a
 // block owns `cpb` hidden columns of all three gates and keeps the first
-// `rows_res` rows of its U panel (Hp x 3 x cpb, packed by the wrapper)
-// in shared memory for the whole sequence; the rest of the panel, where it
-// does not fit, is read from device memory (L2) every step.  A step streams
-// h, and the rows of U that are not resident, through a kSeqStages-deep
-// cp.async ring of kSeqKC-row chunks in shared memory (each block reads all
-// of h every step), and reduces h [Ur|Uz|Un] for the block's columns in
-// f32 fmaf in a fixed order: a thread keeps kSeqRB batch rows x 1 column x
-// 3 gates, and the chunk's rows are split over k-lanes of threads.  The
-// k-lanes' sums meet in shared memory, where every thread of the block
-// takes one element of h', adds its sums in lane order, adds the step's
-// row of G (loaded at the start of the step, so its latency hides behind
-// the reduction) and writes h' to one of two hidden-state buffers, used in
-// turn; the last step writes `out`.  Block i starts its walk over the
-// chunks at chunk i mod (Hp / kSeqKC), so the blocks do not all read the
-// same lines of h at once.  A launch stages at most kSeqMaxB batch rows; a
-// larger batch is run as groups of rows, one launch each (the rows of a GRU
-// do not interact), each reading its rows of G with G's own row stride.
+// `rows_res` rows of its U panel (Hp rows, packed by the wrapper) in shared
+// memory for the whole sequence; the rest of the panel, where it does not
+// fit, is read from device memory (L2) every step.  A step streams h, and
+// the rows of U that are not resident, through a kSeqStages-deep cp.async
+// ring of kSeqKC-row chunks in shared memory (each block reads all of h
+// every step) and reduces h [Ur|Uz|Un] for the block's columns in a fixed
+// order.  The partial sums meet in shared memory, where every thread of
+// the block takes one element of h', adds its sums in a fixed order, adds
+// the step's row of G (loaded at the start of the step, so its latency
+// hides behind the reduction) and writes h' to one of two hidden-state
+// buffers, used in turn; the last step writes `out`.  Block i starts its
+// walk over the chunks at chunk i mod (Hp / kSeqKC), so the blocks do not
+// all read the same lines of h at once.  A launch stages at most kSeqMaxB
+// batch rows; a larger batch is run as groups of rows, one launch each
+// (the rows of a GRU do not interact), each reading its rows of G with
+// G's own row stride.
+//
+// The inner product, chosen at compile time by the operand type:
+//
+// * bf16: the tensor cores.  A step's product for a block is written
+//   transposed, Cᵀ (3 cpb x B) = Uᵀ (3 cpb x Hp) hᵀ (Hp x B), and run as
+//   wgmma m64nNk16 with N the staged batch rows (8 to 64), bf16 x bf16
+//   with f32 sums.  A (U) comes from registers, loaded by ldmatrix.trans
+//   from the panel, which pack_u writes padded to whole m16 tiles and in
+//   the order ldmatrix reads it (conflict-free); a warp whose m16 tile lies
+//   past the panel's rows gives zeros, which take no shared memory.  B (h)
+//   is staged in wgmma's 8 x 8 core matrices (seq_h_at), and a
+//   fence.proxy.async makes each chunk's cp.async writes visible to it.
+//   One warpgroup for each m64 tile of the panel row (up to four, then two
+//   tiles each) runs the chunk loop with its own barrier and takes a
+//   chunk's four k16 steps in order; the other warps wait for its sums,
+//   which reach shared memory once, so every sum has one order and two
+//   runs give the same bits.  Few warps run the loop because with the
+//   products on the tensor cores a chunk costs what its bookkeeping costs
+//   to issue, and each of 16 warps issued all of it.
+//
+//   What bounds a step now (H100, 32 x 1792, T = 128): 15.0 us, of which
+//   the wgmma take ~2.6 us, the epilogue and the grid barrier 3.6 us and
+//   staging h the rest, ~8.5 us: every block reads all of h (115 KB a
+//   step, 14.7 MB over 128 blocks) from L2 at ~1.7 TB/s in all, and a ring
+//   twice as deep does not move it.  Loading h once for many blocks
+//   (clusters, multicast) is what would.
+// * f32: f32 fmaf on the CUDA cores (TF32's 10-bit mantissa would fall
+//   below the precision f32 operands ask for).  A thread keeps kSeqRB batch
+//   rows x 1 column x 3 gates, and the chunk's rows are split over k-lanes
+//   of threads, whose sums are added in lane order.  At B = 32, H = 1792
+//   the h U half is 0.62 GFLOP a step, 9.2 us at 67 TFLOP/s; loading 8 h
+//   and 3 U values and widening them for every 24 FMAs, the loop reaches
+//   about a quarter of that rate.
 //
 // One grid barrier per step is enough: step t reads only buffer (t-1)%2
 // and writes only buffer t%2.  Step t+1 writes buffer (t+1)%2 = (t-1)%2,
@@ -88,7 +114,8 @@
 //
 // Both kernels take f32 or bf16 operands (T, one type for x, h and the ten
 // parameters), as the Pallas kernel does: every load widens to f32, all
-// arithmetic is f32, and h' is stored in T (`.astype(out_ref.dtype)`,
+// arithmetic is f32 (K4's bf16 products on the tensor cores: exact in f32,
+// summed in f32), and h' is stored in T (`.astype(out_ref.dtype)`,
 // src/repro/kernels/gru.py:51).  Shared memory stages T, so a bf16 ring or U
 // panel row takes half the bytes of an f32 one.  K4's two hidden-state
 // buffers hold T, so h is rounded to T after every step, as the JAX scan
@@ -103,6 +130,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -119,7 +147,8 @@ constexpr int kSeqKC = 64;       // K4: rows of h per staged chunk
 constexpr int kSeqStages = 4;    // K4: cp.async ring depth
 constexpr int kSeqMaxB = 64;     // K4: batch rows a block stages
 constexpr int kRB = 4;           // K3: batch rows per thread
-constexpr int kSeqRB = 8;        // K4: batch rows per thread
+constexpr int kSeqRB = 8;        // K4: batch rows per thread (f32)
+constexpr int kSeqMmaTiles = 8;  // K4, bf16: m64 tiles of panel rows a block takes
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
@@ -471,11 +500,59 @@ int with_step(int dtype, int bb, int bh, int vec, F&& f) {
 // K4
 // ===========================================================================
 
-// Elements of a staged row of h: kSeqKC columns plus a pad of 16 bytes,
-// which keeps 16-byte copies aligned and staggers the rows over the banks.
+// K4's inner product by operand type: the tensor cores for bf16, f32 fmaf
+// for f32.
+template <typename T>
+constexpr bool kSeqMma = std::is_same<T, bf16>::value;
+
+// Elements of a staged row of h: f32, kSeqKC columns plus a pad of 16
+// bytes, which keeps 16-byte copies aligned and staggers the rows over the
+// banks; bf16, kSeqKC columns in wgmma's core matrices (seq_h_at).
 template <typename T>
 __host__ __device__ constexpr int seq_hs() {
-  return kSeqKC + 16 / static_cast<int>(sizeof(T));
+  return kSeqMma<T> ? kSeqKC : kSeqKC + 16 / static_cast<int>(sizeof(T));
+}
+
+// Element (b, k) of a staged chunk of h with bp rows.  bf16: 8-row x
+// 8-column core matrices, each 128 contiguous bytes, the bp / 8 of one
+// 8-column group one after another, then the next group: wgmma reads it
+// as a K-major B with 128 bytes from 8 rows to the next and 16 bp from 8
+// columns to the next.
+template <typename T>
+__device__ __forceinline__ int seq_h_at(int b, int k, int bp) {
+  if constexpr (kSeqMma<T>)
+    return ((k >> 3) * bp + b) * 8 + (k & 7);
+  else
+    return b * seq_hs<T>() + k;
+}
+
+// Elements of a row of a block's U panel for operands of `esize` bytes:
+// the 3 cpb columns, in bf16 padded with zeros to whole m16 tiles.
+__host__ __device__ constexpr int seq_row(int cpb, int esize) {
+  return esize == 2 ? cdiv(3 * cpb, 16) * 16 : 3 * cpb;
+}
+
+// bf16: the m64 tiles of a panel row, and the warpgroups that run the
+// chunk loop, one for each tile up to four (then two tiles each).
+__host__ __device__ constexpr int seq_mma_tiles(int cpb) {
+  return cdiv(3 * cpb, 64);
+}
+__host__ __device__ constexpr int seq_mma_groups(int cpb) {
+  return seq_mma_tiles(cpb) < 4 ? seq_mma_tiles(cpb) : 4;
+}
+
+// The first row of chunk i mod nchunks of a block's walk (i < 2 nchunks),
+// wrapped by a compare: every dependent instruction of the chunk loop adds
+// to a chunk's time (a division cost K4 7-20% at the DeepBench sizes, on
+// bf16's few warps and f32's 16 alike).
+__device__ __forceinline__ int seq_chunk(int i, int nchunks) {
+  return (i < nchunks ? i : i - nchunks) * kSeqKC;
+}
+
+// The chunk loop's block barrier over the n threads that run it (barrier 1:
+// bf16's loop runs on the threads of its warpgroups, f32's on all).
+__device__ __forceinline__ void seq_sync(int n) {
+  asm volatile("bar.sync 1, %0;\n" :: "r"(n) : "memory");
 }
 
 template <typename T>
@@ -483,12 +560,13 @@ struct SeqArgs {
   const float* g;      // (T, gb, 3H): x [Wr|Wz|Wn] + [br|bz|bnx], from row 0
                        // of this launch's batch rows, in f32
   const T* h0;         // (B, H)
-  const T* upack;      // (gridDim.x, Hp, 3, cpb): each block's U panel
+  const T* upack;      // each block's U panel (Hp rows, pack_u's layout)
   const T* bnh;        // (H)
   T* buf;              // (2, B, H): the hidden state, used in turn
   T* out;              // (B, H): the last step's h
   unsigned* bar;       // the grid barrier's counter, 0 at the launch
-  int steps, B, gb, H, Hp, cpb, rows_res, lanes;  // gb: G's rows a step
+  // gb: G's rows a step; lanes: f32's k-lanes (bf16 takes none)
+  int steps, B, gb, H, Hp, cpb, rows_res, lanes;
 };
 
 // Arrive at the grid barrier of step t and wait for every block.
@@ -540,51 +618,161 @@ __device__ __forceinline__ void seq_fma(const T* __restrict__ hs,
   }
 }
 
+// acc += h [Ur|Uz|Un] over one staged chunk on the tensor cores (bf16), as
+// Cᵀ = Aᵀ Bᵀ: A, the chunk's rows of the block's U panel (16 x 16 blocks
+// in the order ldmatrix reads them, rows of `row` elements), B, the chunk
+// of h (NB rows).  Warpgroup g of the seq_mma_groups(cpb) that run the loop
+// takes the chunk's four k16 steps for the m64 tiles g and g + groups.
+// wgmma reads A from registers after it is issued, so every fragment of
+// the chunk is loaded into registers of its own first, and they stay
+// live (the empty asm) until the wait that retires the last wgmma: a
+// register reused while a queued wgmma has yet to read it would change
+// its A.  The products are waited for here, so no stage is read once the
+// loop moves on.  Every warp runs the same count of wgmma, set by cpb
+// alone, so that no branch the compiler must take for divergent surrounds
+// them (it would serialize them); a warp whose m16 tile lies past the
+// panel's rows reads a tile that is there and gives A as zeros, and a
+// tile past the panel's last adds zeros to sums that are never stored.
+template <int NB>
+__device__ __forceinline__ void seq_mma(const bf16* hs, const bf16* u,
+                                        int cpb, float (&acc)[2][NB / 2]) {
+  constexpr int KS = kSeqKC / 16;  // k16 steps a chunk
+  const int groups = seq_mma_groups(cpb), mt16 = seq_row(cpb, 2) / 16;
+  const int rounds = cdiv(seq_mma_tiles(cpb), groups);  // 1 or 2
+  const int wg = threadIdx.x / 128, wq = threadIdx.x / 32 % 4;
+  uint32_t a[2][KS][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (j == rounds) break;
+    const int mt = 4 * (wg + groups * j) + wq;
+    const uint32_t keep = mt < mt16 ? ~0u : 0u;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      hopper::ldmatrix_x4_trans(
+          a[j][kk], u + (kk * mt16 + (mt < mt16 ? mt : mt16 - 1)) * 256 +
+                        threadIdx.x % 32 * 8);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[j][kk][i] &= keep;
+    }
+  }
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (j == rounds) break;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      hopper::WgmmaRS<NB>::mma(
+          acc[j], a[j][kk],
+          hopper::wgmma_desc_plain(hs + kk * 16 * NB, 16 * NB, 128));
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    hopper::fence_regs(acc[j]);
+    if (j == rounds) break;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) hopper::fence_uregs(a[j][kk]);
+  }
+}
+
+// The step's sums to shared memory, by the warps that ran the loop: panel
+// row m and batch row n at red[n (row + 4) + m] (the pad of 4 spreads a
+// warp's stores over the banks).
+template <int NB>
+__device__ __forceinline__ void seq_mma_store(float* red,
+                                              const float (&acc)[2][NB / 2],
+                                              int cpb) {
+  const int groups = seq_mma_groups(cpb), mt16 = seq_row(cpb, 2) / 16;
+  const int tiles = seq_mma_tiles(cpb), rs = seq_row(cpb, 2) + 4;
+  const int wg = threadIdx.x / 128, wq = threadIdx.x / 32 % 4;
+  const int l = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int tile = wg + groups * j, mt = 4 * tile + wq;
+    if (tile >= tiles || mt >= mt16) continue;
+#pragma unroll
+    for (int i = 0; i < NB / 2; ++i)
+      red[(8 * (i / 4) + 2 * (l % 4) + i % 2) * rs + 16 * mt + l / 4 +
+          8 * (i % 4 / 2)] = acc[j][i];
+  }
+}
+
 // Issues the copies of chunk k0 into one ring stage: the h rows (all bp
 // batch rows, kSeqKC columns; rows >= B and columns >= H as zeros) and,
 // where the panel's rows k0.. are not resident, those kSeqKC rows of the
 // block's U panel.  VEC: h by 16-byte cp.async.cg, which reads L2 and
 // never a stale L1 line; else by __ldcg, element by element, which waits
 // for each load.  The U panel is read-only and 16-byte aligned: cp.async.
+// The n threads that run the chunk loop issue them.
 template <typename T, bool VEC>
 __device__ __forceinline__ void seq_issue(T* stage, const T* hin,
                                           const T* panel, int k0,
-                                          const SeqArgs<T>& p, int bp) {
+                                          const SeqArgs<T>& p, int bp,
+                                          int n) {
   constexpr int V16 = 16 / static_cast<int>(sizeof(T));  // elements a copy
   constexpr int VW = VEC ? V16 : 1;
   constexpr int PER_ROW = kSeqKC / VW;
-  for (int i = threadIdx.x; i < bp * PER_ROW; i += kSeqThreads) {
-    const int b = i / PER_ROW, q = (i % PER_ROW) * VW;
-    const int gk = k0 + q;
-    const bool ok = b < p.B && gk < p.H;
-    T* dst = stage + b * seq_hs<T>() + q;
-    const T* src = hin + static_cast<size_t>(b) * p.H + gk;
-    if constexpr (VEC)
-      hopper::cp_async<16>(dst, ok ? src : hin, ok ? 16 : 0);
-    else
-      *dst = ok ? ldcg(src) : from_f32<T>(0.0f);
+  if constexpr (kSeqMma<T> && VEC) {
+    // each 32 copies: 8 rows x 4 column groups, whose 16-byte slots in the
+    // core matrices are 32 consecutive ones (bp is the kernel's NB, so the
+    // indices fold)
+    for (int i = threadIdx.x; i < bp * PER_ROW; i += n) {
+      const int w = i / 32, l = i % 32;
+      const int b = w % (bp / 8) * 8 + l % 8;
+      const int q = (w / (bp / 8) * 4 + l / 8) * VW;
+      const bool ok = b < p.B && k0 + q < p.H;
+      hopper::cp_async<16>(stage + seq_h_at<T>(b, q, bp),
+                           ok ? hin + static_cast<size_t>(b) * p.H + k0 + q
+                              : hin,
+                           ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < bp * PER_ROW; i += n) {
+      const int b = i / PER_ROW, q = (i % PER_ROW) * VW;
+      const int gk = k0 + q;
+      const bool ok = b < p.B && gk < p.H;
+      T* dst = stage + seq_h_at<T>(b, q, bp);
+      const T* src = hin + static_cast<size_t>(b) * p.H + gk;
+      if constexpr (VEC)
+        hopper::cp_async<16>(dst, ok ? src : hin, ok ? 16 : 0);
+      else
+        *dst = ok ? ldcg(src) : from_f32<T>(0.0f);
+    }
   }
   if (k0 < p.rows_res) return;
-  const int row = 3 * p.cpb;
+  const int row = seq_row(p.cpb, static_cast<int>(sizeof(T)));
   T* us = stage + bp * seq_hs<T>();
   const T* src = panel + static_cast<size_t>(k0) * row;
-  for (int i = V16 * threadIdx.x; i < kSeqKC * row; i += V16 * kSeqThreads)
+  for (int i = V16 * threadIdx.x; i < kSeqKC * row; i += V16 * n)
     hopper::cp_async<16>(us + i, src + i, 16);
 }
 
-template <typename T, bool VEC>
+template <typename T, bool VEC, int NB>
 __global__ void __launch_bounds__(kSeqThreads) gru_seq_kernel(SeqArgs<T> p) {
+  static_assert(kSeqMma<T> == (NB > 0) && NB % 8 == 0 && NB <= kSeqMaxB,
+                "bf16 takes NB = the staged batch rows, f32 none");
+  static_assert(kSeqThreads == 4 * 128 && kSeqKC == 4 * 16,
+                "the MMA loop: up to four warpgroups, four k16 steps a chunk");
   extern __shared__ __align__(16) unsigned char seq_smem[];
   constexpr int HS = seq_hs<T>();
   const int rg = (p.B + kSeqRB - 1) / kSeqRB;  // thread rows
-  const int bp = rg * kSeqRB;               // staged rows, padded with zeros
+  // staged rows, padded with zeros (bf16: NB, so that what follows from
+  // them is known to the compiler)
+  const int bp = kSeqMma<T> ? NB : rg * kSeqRB;
   const int units = p.cpb * rg;
   const int lane = threadIdx.x / units, unit = threadIdx.x % units;
   const int c = unit % p.cpb, tb = unit / p.cpb;
   const bool active = lane < p.lanes;
   const int kper = kSeqKC / p.lanes;
-  const int row = 3 * p.cpb;
+  const int row = seq_row(p.cpb, static_cast<int>(sizeof(T)));
   const int c0 = blockIdx.x * p.cpb;
+  // the threads that run the chunk loop: f32's all, bf16's those of its
+  // warpgroups, one an m64 tile of the panel row up to four; the rest wait
+  // for its sums (with the products on the tensor cores a chunk costs its
+  // waits, barrier and copies, and fewer warps issue them)
+  const int mthreads = kSeqMma<T> ? 128 * seq_mma_groups(p.cpb) : kSeqThreads;
+  const bool loops = threadIdx.x < mthreads;
 
   // the resident rows of this block's U panel (rounded up to 16 bytes),
   // then the ring of staged chunks (which the k-lanes' f32 sums reuse at
@@ -596,8 +784,14 @@ __global__ void __launch_bounds__(kSeqThreads) gru_seq_kernel(SeqArgs<T> p) {
   T* ring = reinterpret_cast<T*>(seq_smem + panel_bytes);
   const int stage_elems = bp * HS + (p.rows_res < p.Hp ? kSeqKC * row : 0);
   float* red = reinterpret_cast<float*>(ring);
-  for (int i = threadIdx.x; i < p.rows_res * row; i += kSeqThreads)
-    us[i] = ldg(panel + i);
+  if constexpr (kSeqMma<T>) {  // rows of 16 bf16: 16-byte loads
+    for (int i = 8 * threadIdx.x; i < p.rows_res * row; i += 8 * kSeqThreads)
+      *reinterpret_cast<uint4*>(us + i) =
+          __ldg(reinterpret_cast<const uint4*>(panel + i));
+  } else {
+    for (int i = threadIdx.x; i < p.rows_res * row; i += kSeqThreads)
+      us[i] = ldg(panel + i);
+  }
   __syncthreads();
 
   const size_t plane = static_cast<size_t>(p.B) * p.H;
@@ -615,49 +809,77 @@ __global__ void __launch_bounds__(kSeqThreads) gru_seq_kernel(SeqArgs<T> p) {
   for (int t = 0; t < p.steps; ++t) {
     const T* hin = t ? p.buf + ((t - 1) & 1) * plane : p.h0;
     T* hout = t == p.steps - 1 ? p.out : p.buf + (t & 1) * plane;
-    float acc[kSeqRB][3];
+    // f32: kSeqRB batch rows x 1 column x 3 gates; bf16: the wgmma
+    // accumulators of up to two m64 tiles
+    std::conditional_t<kSeqMma<T>, float[2][(NB > 0 ? NB / 2 : 1)],
+                       float[kSeqRB][3]>
+        acc;
+    if constexpr (kSeqMma<T>) {
 #pragma unroll
-    for (int i = 0; i < kSeqRB; ++i) acc[i][0] = acc[i][1] = acc[i][2] = 0.0f;
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < NB / 2; ++i) acc[j][i] = 0.0f;
+    } else {
+#pragma unroll
+      for (int i = 0; i < kSeqRB; ++i)
+        acc[i][0] = acc[i][1] = acc[i][2] = 0.0f;
+    }
     // the first element's operands, loaded now so that their latency
-    // hides behind the reduction: the step's row of G, and h (taken from
-    // the staged chunk that holds the element's column)
+    // hides behind the reduction: the step's row of G, and h (f32: taken
+    // from the staged chunk that holds the element's column; bf16, whose
+    // chunks only the loop's warps see, read through L2 here)
     float gv[3], hold = 0.0f;
     {
       const float* grow = p.g + (static_cast<size_t>(t) * p.gb + eb) * 3 * p.H;
 #pragma unroll
       for (int g = 0; g < 3; ++g) gv[g] = mine ? __ldg(grow + g * p.H + ej) : 0.f;
+      if constexpr (kSeqMma<T>)
+        if (mine) hold = f32(ldcg(hin + static_cast<size_t>(eb) * p.H + ej));
     }
 
+    if (loops) {
 #pragma unroll
-    for (int s = 0; s < kSeqStages - 1; ++s) {
-      if (s < nchunks)
-        seq_issue<T, VEC>(ring + s * stage_elems, hin, panel,
-                          (first + s) % nchunks * kSeqKC, p, bp);
-      hopper::cp_async_commit();
+      for (int s = 0; s < kSeqStages - 1; ++s) {
+        if (s < nchunks)
+          seq_issue<T, VEC>(ring + s * stage_elems, hin, panel,
+                            seq_chunk(first + s, nchunks), p, bp,
+                            mthreads);
+        hopper::cp_async_commit();
+      }
+      for (int ci = 0; ci < nchunks; ++ci) {
+        hopper::cp_async_wait<kSeqStages - 2>();  // chunk ci has landed
+        // bf16: ... in the view of wgmma too (the async proxy)
+        if constexpr (kSeqMma<T>) hopper::fence_proxy_async();
+        seq_sync(mthreads);  // ... for every thread; stage ci - 1 is free
+        const int next = ci + kSeqStages - 1;
+        if (next < nchunks)
+          seq_issue<T, VEC>(ring + (next % kSeqStages) * stage_elems, hin,
+                            panel, seq_chunk(first + next, nchunks), p,
+                            bp, mthreads);
+        hopper::cp_async_commit();
+        const int k0 = seq_chunk(first + ci, nchunks);
+        const T* stage = ring + (ci % kSeqStages) * stage_elems;
+        const T* u = k0 < p.rows_res ? us + k0 * row : stage + bp * HS;
+        if constexpr (kSeqMma<T>) {
+          seq_mma<NB>(stage, u, p.cpb, acc);
+        } else {
+          if (active)
+            seq_fma<T>(stage, u, lane * kper, (lane + 1) * kper, c, tb, rg,
+                       p.cpb, acc);
+          if (mine && ej >= k0 && ej < k0 + kSeqKC)
+            hold = f32(stage[seq_h_at<T>(eb, ej - k0, bp)]);
+        }
+      }
+      hopper::cp_async_wait<0>();
     }
-    for (int ci = 0; ci < nchunks; ++ci) {
-      hopper::cp_async_wait<kSeqStages - 2>();  // chunk ci has landed
-      __syncthreads();  // ... for every thread, and stage ci - 1 is free
-      const int next = ci + kSeqStages - 1;
-      if (next < nchunks)
-        seq_issue<T, VEC>(ring + (next % kSeqStages) * stage_elems, hin,
-                          panel, (first + next) % nchunks * kSeqKC, p, bp);
-      hopper::cp_async_commit();
-      const int k0 = (first + ci) % nchunks * kSeqKC;
-      const T* stage = ring + (ci % kSeqStages) * stage_elems;
-      const T* u = k0 < p.rows_res ? us + k0 * row : stage + bp * HS;
-      if (active)
-        seq_fma<T>(stage, u, lane * kper, (lane + 1) * kper, c, tb, rg, p.cpb,
-                   acc);
-      if (mine && ej >= k0 && ej < k0 + kSeqKC)
-        hold = f32(stage[eb * HS + ej - k0]);
-    }
-    hopper::cp_async_wait<0>();
     __syncthreads();
 
-    // every k-lane's sums to shared memory; each element then adds its
-    // column's sums in lane order and runs the gate epilogue
-    if (active)
+    // every k-lane's sums (bf16: the loop's warps' sums) to shared memory;
+    // each element then adds its column's sums in lane order and runs the
+    // gate epilogue
+    if constexpr (kSeqMma<T>) {
+      if (loops) seq_mma_store<NB>(red, acc, p.cpb);
+    } else if (active)
 #pragma unroll
       for (int i = 0; i < kSeqRB; ++i)
 #pragma unroll
@@ -669,15 +891,23 @@ __global__ void __launch_bounds__(kSeqThreads) gru_seq_kernel(SeqArgs<T> p) {
       if (j >= p.H) continue;
       const bool first_elem = e == threadIdx.x;
       const float* grow = p.g + (static_cast<size_t>(t) * p.gb + b) * 3 * p.H;
-      // b is row i = b / rg of unit (b % rg, ec)
-      const float* r0 = red + ((b % rg) * p.cpb + ec) * (3 * kSeqRB) +
-                        3 * (b / rg);
       float sr = 0.0f, sz = 0.0f, sn = 0.0f;
-      for (int l = 0; l < p.lanes; ++l) {
-        const float* rl = r0 + l * units * (3 * kSeqRB);
-        sr += rl[0];
-        sz += rl[1];
-        sn += rl[2];
+      if constexpr (kSeqMma<T>) {
+        // panel rows ec, cpb + ec, 2 cpb + ec of batch row b
+        const float* r0 = red + b * (row + 4) + ec;
+        sr = r0[0];
+        sz = r0[p.cpb];
+        sn = r0[2 * p.cpb];
+      } else {
+        // b is row i = b / rg of unit (b % rg, ec)
+        const float* r0 = red + ((b % rg) * p.cpb + ec) * (3 * kSeqRB) +
+                          3 * (b / rg);
+        for (int l = 0; l < p.lanes; ++l) {
+          const float* rl = r0 + l * units * (3 * kSeqRB);
+          sr += rl[0];
+          sz += rl[1];
+          sn += rl[2];
+        }
       }
       const size_t o = static_cast<size_t>(b) * p.H + j;
       const float r = sigmoid((first_elem ? gv[0] : __ldg(grow + j)) + sr);
@@ -738,9 +968,9 @@ extern "C" int repro_gru_cell_occupancy(int dtype, int bb, int bh, int vec,
 }
 
 // The constants that kernels/gru.py mirrors for its launch plans, as
-// six ints into out: kStepKC, kSeqThreads, kSeqKC, kSeqStages, kSeqRB,
-// kSeqMaxB.  The wrapper compares them with its copies when it binds this
-// library and raises on a difference.  Returns 0.
+// seven ints into out: kStepKC, kSeqThreads, kSeqKC, kSeqStages, kSeqRB,
+// kSeqMaxB, kSeqMmaTiles.  The wrapper compares them with its copies when
+// it binds this library and raises on a difference.  Returns 0.
 extern "C" int repro_gru_constants(void* out) {
   int* o = static_cast<int*>(out);
   o[0] = kStepKC;
@@ -749,27 +979,31 @@ extern "C" int repro_gru_constants(void* out) {
   o[3] = kSeqStages;
   o[4] = kSeqRB;
   o[5] = kSeqMaxB;
+  o[6] = kSeqMmaTiles;
   return 0;
 }
 
 // The dynamic shared memory gru_seq_kernel lays out for operands of `esize`
 // bytes: the resident rows of the U panel (rounded up to 16 bytes), then
-// the ring of kSeqStages chunks, which the k-lanes' f32 sums reuse.
+// the ring of kSeqStages chunks, which the k-lanes' f32 sums (bf16: the
+// loop warps' sums, one set) reuse.
 static long long seq_smem_bytes(int B, int cpb, int rows_res, int lanes,
                                 int Hp, int esize) {
-  const long long rg = cdiv(B, kSeqRB), row = 3LL * cpb;
-  const long long stage = rg * kSeqRB * (kSeqKC + 16 / esize) +
+  const long long rg = cdiv(B, kSeqRB), row = seq_row(cpb, esize);
+  const long long hs = esize == 2 ? kSeqKC : kSeqKC + 16 / esize;
+  const long long stage = rg * kSeqRB * hs +
                           (rows_res < Hp ? kSeqKC * row : 0);
   const long long ring = kSeqStages * stage * esize;
-  const long long red = 4LL * lanes * cpb * rg * 3 * kSeqRB;
+  const long long red = esize == 2 ? 4LL * (row + 4) * rg * kSeqRB
+                                   : 4LL * lanes * cpb * rg * 3 * kSeqRB;
   return (rows_res * row * esize + 15) / 16 * 16 + (ring > red ? ring : red);
 }
 
-template <typename T>
+template <typename T, int NB>
 int launch_seq(int vec, int blocks, int smem, const SeqArgs<T>& p,
                cudaStream_t s) {
   void (*kernel)(SeqArgs<T>) =
-      vec ? gru_seq_kernel<T, true> : gru_seq_kernel<T, false>;
+      vec ? gru_seq_kernel<T, true, NB> : gru_seq_kernel<T, false, NB>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -796,9 +1030,12 @@ int launch_seq(int vec, int blocks, int smem, const SeqArgs<T>& p,
 // K4's recurrence over B <= kSeqMaxB batch rows: one cooperative launch of
 // `blocks` blocks running all T steps (kernels/gru.py::gru_seq_launch sets
 // blocks, cpb, rows_res, lanes and smem; the wrapper launches once for each
-// group of at most kSeqMaxB rows).  dtype: 0 float32, 1 bfloat16, of h0,
-// upack, bnh, buf and out.  g: the group's first row of G, a (T, gb, 3H)
-// f32 array; h0, out: (B, H); upack: (blocks, Hp, 3, cpb); buf: 2 B H
+// group of at most kSeqMaxB rows).  dtype: 0 float32, 1 bfloat16,
+// of h0, upack, bnh, buf and out.  g: the group's first row of G, a (T, gb,
+// 3H) f32 array; h0, out: (B, H); upack: the blocks' U panels in
+// kernels/gru.py::pack_u's layout for the dtype (f32 (blocks, Hp, 3, cpb);
+// bf16 rows of seq_row(cpb, 2) elements in ldmatrix order); lanes: f32's
+// k-lanes, which bf16 does not read; buf: 2 B H
 // scratch; bar: one 32-bit counter of scratch, zeroed here.  vec: 16-byte
 // loads of h (H a multiple of 4 f32 or 8 bf16, h0 16-byte aligned).
 // Returns cudaErrorCooperativeLaunchTooLarge when the grid cannot be
@@ -814,8 +1051,10 @@ extern "C" int repro_gru_seq(int dtype, int vec, int blocks, int cpb,
   const int esize = dtype == 0 ? 4 : 2;
   if (dtype < 0 || dtype > 1 || B < 1 || B > kSeqMaxB || gb < B || T < 1 ||
       H < 1 || cpb < 1 || blocks < 1 || 1LL * blocks * cpb < H ||
-      lanes < 1 || cpb * rg * lanes > kSeqThreads ||
-      kSeqKC % (4 * lanes) != 0 || Hp % kSeqKC != 0 || Hp < H ||
+      (dtype == 0 ? lanes < 1 || cpb * rg * lanes > kSeqThreads ||
+                        kSeqKC % (4 * lanes)
+                  : seq_mma_tiles(cpb) > kSeqMmaTiles) ||
+      Hp % kSeqKC != 0 || Hp < H ||
       rows_res < 0 || rows_res > Hp ||
       (rows_res != Hp && rows_res % kSeqKC != 0) ||
       smem < seq_smem_bytes(B, cpb, rows_res, lanes, Hp, esize))
@@ -824,7 +1063,7 @@ extern "C" int repro_gru_seq(int dtype, int vec, int blocks, int cpb,
   const auto* gf = static_cast<const float*>(g);
   auto* counter = static_cast<unsigned*>(bar);
   if (dtype == 0)
-    return launch_seq<float>(
+    return launch_seq<float, 0>(
         vec, blocks, smem,
         SeqArgs<float>{gf, static_cast<const float*>(h0),
                        static_cast<const float*>(upack),
@@ -832,12 +1071,19 @@ extern "C" int repro_gru_seq(int dtype, int vec, int blocks, int cpb,
                        static_cast<float*>(out), counter, T, B, gb, H, Hp, cpb,
                        rows_res, lanes},
         s);
-  return launch_seq<bf16>(
-      vec, blocks, smem,
-      SeqArgs<bf16>{gf, static_cast<const bf16*>(h0),
-                    static_cast<const bf16*>(upack),
-                    static_cast<const bf16*>(bnh), static_cast<bf16*>(buf),
-                    static_cast<bf16*>(out), counter, T, B, gb, H, Hp, cpb,
-                    rows_res, lanes},
-      s);
+  const SeqArgs<bf16> a{gf, static_cast<const bf16*>(h0),
+                        static_cast<const bf16*>(upack),
+                        static_cast<const bf16*>(bnh), static_cast<bf16*>(buf),
+                        static_cast<bf16*>(out), counter, T, B, gb, H, Hp, cpb,
+                        rows_res, lanes};
+  switch (rg * kSeqRB) {  // the wgmma's N: the staged batch rows
+    case 8: return launch_seq<bf16, 8>(vec, blocks, smem, a, s);
+    case 16: return launch_seq<bf16, 16>(vec, blocks, smem, a, s);
+    case 24: return launch_seq<bf16, 24>(vec, blocks, smem, a, s);
+    case 32: return launch_seq<bf16, 32>(vec, blocks, smem, a, s);
+    case 40: return launch_seq<bf16, 40>(vec, blocks, smem, a, s);
+    case 48: return launch_seq<bf16, 48>(vec, blocks, smem, a, s);
+    case 56: return launch_seq<bf16, 56>(vec, blocks, smem, a, s);
+    default: return launch_seq<bf16, 64>(vec, blocks, smem, a, s);
+  }
 }

@@ -28,10 +28,11 @@ cached copy could go stale when a buffer is written in place, and the
 copies take tens of microseconds against a sequence of milliseconds.
 
 Operands are f32 or bf16, one dtype for all: the kernels widen every load
-to f32, compute in f32 and store h' in the operand type, so a sequence
-rounds h after every step, as the JAX package's ``lax.scan`` does; G stays
-f32.  On CPU tensors both run the plain versions (``ref.gru_cell_ref``; for
-the sequence the chosen route's: ``ref.gru_seq_hoisted_ref`` or a loop of
+to f32, compute in f32 (K4's bf16 products on the tensor cores, summed in
+f32: ``seq_mma``) and store h' in the operand type, so a sequence rounds h
+after every step, as the JAX package's ``lax.scan`` does; G stays f32.
+On CPU tensors both run the plain versions (``ref.gru_cell_ref``; for the
+sequence the chosen route's: ``ref.gru_seq_hoisted_ref`` or a loop of
 ``ref.gru_cell_ref``); on CUDA tensors they launch the kernels or raise.
 ``tile=(BB, BH)`` is one K3 block's (batch, hidden) tile, normally chosen
 by ``ops.gru_tile`` from the compiler's GRU plan.  ``FusedGRU`` holds the
@@ -65,16 +66,21 @@ STEP_KC = 32
 #: asks the library (``step_blocks_per_sm``)
 STEP_BLOCKS_PER_SM = 2
 #: K4: threads of a block, rows of h per staged chunk, the ring's depth,
-#: batch rows per thread, the most batch rows a launch and k-lanes
+#: batch rows per thread (f32; the staged rows come in groups of as many),
+#: the most batch rows a launch and k-lanes (f32)
 SEQ_THREADS = 512
 SEQ_KC = 64
 SEQ_STAGES = 4
 SEQ_RB = 8
 SEQ_MAX_B = 64
 SEQ_MAX_LANES = SEQ_KC // 4
+#: K4 on bf16 operands: the m64 tiles of a block's panel rows its
+#: tensor-core loop takes (two a warpgroup)
+SEQ_MMA_TILES = 8
 #: the constants above as ``csrc/gru.cu`` defines them, in the order its
 #: ``repro_gru_constants`` writes them; checked when the library is bound
-C_CONSTANTS = (STEP_KC, SEQ_THREADS, SEQ_KC, SEQ_STAGES, SEQ_RB, SEQ_MAX_B)
+C_CONSTANTS = (STEP_KC, SEQ_THREADS, SEQ_KC, SEQ_STAGES, SEQ_RB, SEQ_MAX_B,
+               SEQ_MMA_TILES)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -132,37 +138,65 @@ class SeqLaunch:
     batch: int           # batch rows a launch: one launch a group of rows
     cols: int            # hidden columns per block, of all three gates
     threads: int
-    lanes: int           # k-lanes: threads splitting a chunk's rows
+    lanes: int           # f32: k-lanes, threads splitting a chunk's rows
+                         # (bf16 takes none: 1)
     hp: int              # H padded to whole chunks: rows of a U panel
+    row: int             # elements of a U panel row: 3 cols (bf16: padded
+                         # with zeros to whole m16 tiles)
     rows_on_chip: int    # rows of each block's U panel in shared memory
     smem_bytes: int      # dynamic shared memory of a block
     u_bytes_on_chip: int  # bytes of U (all blocks) kept in shared memory
     u_bytes: int          # bytes of U
 
 
+def seq_mma(dtype: torch.dtype) -> bool:
+    """Whether K4 takes the tensor-core inner product (``csrc/gru.cu``
+    kSeqMma): for bf16 operands; f32 keeps the fmaf loop (TF32 would fall
+    below f32's precision)."""
+    return dtype == torch.bfloat16
+
+
 def seq_hs(esize: int) -> int:
     """Elements of a staged row of h (``csrc/gru.cu`` seq_hs): SEQ_KC and a
-    16-byte pad."""
-    return SEQ_KC + 16 // esize
+    16-byte pad; bf16 (wgmma's core matrices), SEQ_KC."""
+    return SEQ_KC if esize == 2 else SEQ_KC + 16 // esize
+
+
+def seq_row(cols: int, esize: int) -> int:
+    """Elements of a K4 U panel row (``csrc/gru.cu`` seq_row): the 3 cols
+    columns, bf16 padded with zeros to whole m16 tiles."""
+    return _cdiv(3 * cols, 16) * 16 if esize == 2 else 3 * cols
 
 
 def _seq_fit(B: int, H: int, sms: int, smem_limit: int,
              esize: int) -> tuple[SeqLaunch | None, str]:
     """K4's partition for a launch of B <= SEQ_MAX_B batch rows of operands
-    of ``esize`` bytes, or (None, why its block cannot hold them)."""
+    of ``esize`` bytes, or (None, why its block cannot hold them).  f32
+    (esize 4) takes the fmaf loop, bf16 (esize 2) the tensor cores."""
     rg = _cdiv(B, SEQ_RB)
     cols = _cdiv(H, sms)
-    units = cols * rg
-    if units > SEQ_THREADS:
-        return None, (f"gru_seq: {cols} columns x {rg} row groups a block "
-                      f"exceed {SEQ_THREADS} threads (H={H}, sms={sms})")
-    lanes = 1
-    while lanes * 2 * units <= SEQ_THREADS and lanes * 2 <= SEQ_MAX_LANES:
-        lanes *= 2
-    hp = _cdiv(H, SEQ_KC) * SEQ_KC
-    row = 3 * cols                            # elements of a U panel row
+    row = seq_row(cols, esize)                # elements of a U panel row
     h_stage = SEQ_RB * rg * seq_hs(esize)     # elements of a chunk of h
-    red = 4 * lanes * units * 3 * SEQ_RB      # bytes of the k-lane sums
+    if esize == 2:
+        tiles = _cdiv(3 * cols, 64)
+        if tiles > SEQ_MMA_TILES:
+            return None, (f"gru_seq: {cols} columns a block take {tiles} "
+                          f"m64 tiles, the tensor-core loop "
+                          f"{SEQ_MMA_TILES} (H={H}, sms={sms})")
+        lanes = 1
+        red = 4 * (row + 4) * SEQ_RB * rg       # bytes of the step's sums
+    else:
+        units = cols * rg
+        if units > SEQ_THREADS:
+            return None, (f"gru_seq: {cols} columns x {rg} row groups a "
+                          f"block exceed {SEQ_THREADS} threads (H={H}, "
+                          f"sms={sms})")
+        lanes = 1
+        while lanes * 2 * units <= SEQ_THREADS \
+                and lanes * 2 <= SEQ_MAX_LANES:
+            lanes *= 2
+        red = 4 * lanes * units * 3 * SEQ_RB  # bytes of the k-lane sums
+    hp = _cdiv(H, SEQ_KC) * SEQ_KC
 
     def ring(resident: bool) -> int:          # bytes of the staging ring
         stage = h_stage + (0 if resident else SEQ_KC * row)
@@ -181,7 +215,7 @@ def _seq_fit(B: int, H: int, sms: int, smem_limit: int,
         return None, (f"gru_seq: {smem} B of shared memory a block, the card "
                       f"allows {smem_limit} (H={H}, sms={sms})")
     return SeqLaunch(blocks=_cdiv(H, cols), batch=B, cols=cols,
-                     threads=SEQ_THREADS, lanes=lanes, hp=hp,
+                     threads=SEQ_THREADS, lanes=lanes, hp=hp, row=row,
                      rows_on_chip=rows, smem_bytes=smem,
                      u_bytes_on_chip=esize * 3 * H * min(rows, H),
                      u_bytes=esize * 3 * H * H), ""
@@ -213,20 +247,28 @@ def gru_seq_launch(B: int, E: int, H: int, sms: int = H100_SMS,
     """The partition of K4's recurrence over a card with ``sms`` SMs and
     ``smem_limit`` bytes of shared memory a block, for operands of
     ``dtype``: ceil(H / sms) columns a block, so at most ``sms`` blocks (one
-    per SM: the grid must be co-resident); a thread per (column, ``SEQ_RB``
-    batch rows) and as many k-lanes (a power of two) as the block's threads
-    allow; the ``SEQ_STAGES``-deep ring that streams h (and the U rows that
-    are not resident) through shared memory, which the k-lane sums reuse;
-    and all rows of the block's U panel where they fit beside the ring,
-    else as many whole chunks as fit beside a ring that also carries U.
-    A bf16 panel row or chunk of h takes half the bytes of an f32 one.
+    per SM: the grid must be co-resident); the ``SEQ_STAGES``-deep ring
+    that streams h (and the U rows that are not resident) through shared
+    memory, which the step's partial sums reuse; and all rows of the
+    block's U panel where they fit beside the ring, else as many whole
+    chunks as fit beside a ring that also carries U.
+
+    The inner product follows the dtype.  f32 keeps the fmaf loop: a
+    thread per (column, ``SEQ_RB`` batch rows) and as many k-lanes (a power
+    of two) as the block's threads allow.  bf16 takes the tensor cores: a
+    panel row of 3 cols padded to whole m16 tiles (``seq_row``), at most
+    ``SEQ_MMA_TILES`` m64 tiles, one warpgroup a tile running the chunk
+    loop (up to four, which the kernel counts from cols): what is left of a
+    step is then h from L2, the epilogue and the grid barrier.  A bf16 chunk of h takes half
+    the bytes of an f32 one.
 
     A launch takes ``batch`` rows: all B up to ``SEQ_MAX_B``, else groups of
     ``SEQ_MAX_B``, and fewer (halved, down to ``SEQ_RB``) where a block
     cannot hold a group's threads or ring at this H.  Raises ValueError
     where not even ``SEQ_RB`` rows fit (on an H100, f32 above H = 9504,
-    bf16 above 19536: ``seq_route`` then says ``step``).  E does not enter
-    (the projection is K2's).  A pure function."""
+    bf16 above 19008: ``seq_route`` then says ``step``).  E does not enter
+    (the projection is K2's).  A pure function of (B, H, sms, smem_limit,
+    dtype)."""
     esize = _check_dims(B, E, H, sms, dtype)
     launch, why = _seq_partition(B, H, sms, smem_limit, esize)
     if launch is None:
@@ -253,15 +295,30 @@ def pack_w(params: dict) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def pack_u(params: dict, launch: SeqLaunch) -> torch.Tensor:
-    """Each K4 block's U panel, contiguous: (blocks, Hp, 3, cols), block i
-    holding columns [i cols, (i + 1) cols) of Ur, Uz, Un; rows >= H and
-    columns >= H are zeros."""
+    """Each K4 block's U panel, one contiguous tensor, in the layout its
+    inner product reads.  Panel i holds columns [i cols, (i + 1) cols) of
+    Ur, Uz, Un; its row k is U's row k, (3, cols); rows >= H and columns
+    >= H are zeros.
+
+    f32 (the fmaf loop): (blocks, Hp, 3, cols).  bf16 (the tensor cores):
+    each row padded with zeros to ``launch.row`` (whole m16 tiles), and
+    every 16 rows x 16 of its elements stored as ldmatrix reads four 8 x 8
+    matrices: (blocks, Hp / 16, row / 16, 2, 2, 8, 8), indexed (block, k //
+    16, m // 16, k // 8 % 2, m // 8 % 2, k % 8, m % 8) for element m of
+    row k.  The 16-row groups stay in row order, so whole chunks of rows
+    are contiguous either way."""
     u = torch.stack([params["Ur"], params["Uz"], params["Un"]])  # (3, H, H)
     H = u.shape[1]
-    padded = u.new_zeros((3, launch.hp, launch.blocks * launch.cols))
+    blocks, cols, hp = launch.blocks, launch.cols, launch.hp
+    padded = u.new_zeros((3, hp, blocks * cols))
     padded[:, :H, :H] = u
-    return padded.view(3, launch.hp, launch.blocks, launch.cols) \
-        .permute(2, 1, 0, 3).contiguous()
+    panels = padded.view(3, hp, blocks, cols).permute(2, 1, 0, 3)
+    if not seq_mma(u.dtype):
+        return panels.contiguous()
+    rows = u.new_zeros((blocks, hp, launch.row))
+    rows[..., :3 * cols].unflatten(2, (3, cols)).copy_(panels)
+    return rows.view(blocks, hp // 16, 2, 8, launch.row // 16, 2, 8) \
+        .permute(0, 1, 4, 2, 5, 3, 6).contiguous()
 
 
 #: the C entries of ``csrc/gru.cu``.  repro_gru_cell: dtype, BB, BH, vec,
@@ -496,6 +553,7 @@ def _recurrence(g: torch.Tensor, h0: torch.Tensor, params: dict,
     with span("k4.alloc"):
         out = torch.empty_like(h0)
         scratch = torch.empty(buf_bytes + 16, dtype=torch.uint8, device=dev)
+    mma = seq_mma(h0.dtype)
     for b0 in range(0, B, rows):
         nb = min(rows, B - b0)
         vec = H % (16 // esize) == 0 and h0[b0].data_ptr() % 16 == 0
@@ -508,6 +566,8 @@ def _recurrence(g: torch.Tensor, h0: torch.Tensor, params: dict,
                 out[b0].data_ptr(), scratch.data_ptr() + buf_bytes, T, nb, B,
                 H, launch.hp, stream_handle(dev)), "gru_seq")
         count("gru_seq.launches")
+        if mma:
+            count("gru_seq.mma")
     return out
 
 

@@ -43,11 +43,13 @@ CAP = 1 << 20
 LAUNCH_COUNTERS = ("gemm.launches", "gemm_bias_act.launches",
                    "gru_cell.launches", "gru_cell_reduce", "gru_seq.launches",
                    "gemm_transpose", "gemm_reduce")
-#: every counter, by name; these read 0 from import
+#: every counter, by name; these read 0 from import.  ``gru_seq.mma``
+#: counts K4's launches that ran the tensor-core inner product (bf16), a
+#: share of ``gru_seq.launches``, not a launch of its own
 _counts = dict.fromkeys(("compile.memo_hit", "compile.memo_sig",
                          "compile.fresh", "graph.nodes", "graph.gemm_nodes",
-                         "graph.k2_nodes", "graph.stream_nodes")
-                        + LAUNCH_COUNTERS, 0)
+                         "graph.k2_nodes", "graph.stream_nodes",
+                         "gru_seq.mma") + LAUNCH_COUNTERS, 0)
 
 
 class Span(NamedTuple):

@@ -230,11 +230,13 @@ def test_gru_kernels_on_card(cuda_device, tile):
     after_cell = gru_counts()
     assert after_cell == (before[0] + 1, before[1] + (split > 1), before[2],
                           before[3])
+    mma = launched("gru_seq.mma")
     np.testing.assert_allclose(as_f32(gru_seq(xs, h0, p)),
                                as_f32(ref.gru_seq_ref(xs, h0, p)),
                                rtol=1e-4, atol=1e-5)
     assert gru_counts() == (after_cell[0], after_cell[1], after_cell[2] + 1,
                             after_cell[3] + 1)
+    assert launched("gru_seq.mma") == mma      # f32 keeps the fmaf loop
 
 
 @pytest.mark.gpu
@@ -423,7 +425,8 @@ def test_gru_bf16_kernels_on_card(cuda_device, T, B, E, H, tile):
     (2e-2), on both copy routes of each (H % 4 != 0; H % 8 != 0), with U
     resident (all of it up to H = 1792 in bf16), partly resident (3072) and
     in groups of rows (65); the same bits from two runs; a sequence
-    launches K2's projection and the persistent kernel, no K3."""
+    launches K2's projection and the persistent kernel, no K3, and every
+    launch of it runs the tensor-core inner product."""
     rng = np.random.default_rng(T + B + E + H)
     p, xs, h0 = bf16_operands(rng, T, B, E, H, cuda_device)
     assert seq_route(B, E, H, torch.bfloat16, device_sms(cuda_device),
@@ -447,11 +450,13 @@ def test_gru_bf16_kernels_on_card(cuda_device, T, B, E, H, tile):
         as_f32(cells[0]),
         as_f32(ref.gru_cell_split_ref(xs[0], h0, p, 32, split)), **BF16_TOL)
     before = gru_counts()
+    mma = launched("gru_seq.mma")
     seqs = [gru_seq(xs, h0, p) for _ in range(2)]
     torch.cuda.synchronize()
     groups = -(-B // launch.batch)
     assert gru_counts() == (before[0], before[1], before[2] + 2 * groups,
                             before[3] + 2)
+    assert launched("gru_seq.mma") == mma + 2 * groups
     assert seqs[0].dtype == torch.bfloat16
     np.testing.assert_array_equal(as_f32(seqs[0]), as_f32(seqs[1]))
     np.testing.assert_allclose(as_f32(seqs[0]),
@@ -459,6 +464,104 @@ def test_gru_bf16_kernels_on_card(cuda_device, T, B, E, H, tile):
                                **BF16_TOL)
     np.testing.assert_allclose(as_f32(seqs[0]),
                                as_f32(ref.gru_seq_hoisted_ref(xs, h0, p)),
+                               **BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H", [(32, 512), (32, 1024), (16, 1536),
+                                 (32, 1792)])
+def test_gru_seq_bf16_at_deepbench_sizes_on_card(cuda_device, B, H):
+    """K4 in bf16 at the four DeepBench sizes, T = 128, input = hidden: one
+    tensor-core launch, against the plain version at JAX's bf16 tolerance,
+    the same bits from two runs."""
+    rng = np.random.default_rng(B + H)
+    T = 128
+    p, xs, h0 = bf16_operands(rng, T, B, H, H, cuda_device)
+    launch = gru_seq_launch(B, H, H, device_sms(cuda_device),
+                            device_smem(cuda_device), torch.bfloat16)
+    assert launch.rows_on_chip == launch.hp == H and launch.lanes == 1
+    before = gru_counts()
+    mma = launched("gru_seq.mma")
+    seqs = [gru_seq(xs, h0, p) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert gru_counts() == (before[0], before[1], before[2] + 2,
+                            before[3] + 2)
+    assert launched("gru_seq.mma") == mma + 2
+    np.testing.assert_array_equal(as_f32(seqs[0]), as_f32(seqs[1]))
+    np.testing.assert_allclose(as_f32(seqs[0]),
+                               as_f32(ref.gru_seq_ref(xs, h0, p)),
+                               **BF16_TOL)
+
+
+@pytest.mark.gpu
+def test_gru_seq_bf16_unaligned_h0_on_card(cuda_device):
+    """A bf16 h0 whose rows are not 16-byte aligned takes the 2-byte copy
+    route (the kernel's VEC = false instantiation, tensor cores all the
+    same); both routes match the plain version."""
+    rng = np.random.default_rng(17)
+    T, B, E, H = 5, 32, 64, 1024
+    p, xs, h0 = bf16_operands(rng, T, B, E, H, cuda_device)
+    odd = torch.empty(B * H + 1, dtype=torch.bfloat16,
+                      device=cuda_device)[1:].view(B, H)
+    odd.copy_(h0)
+    want = as_f32(ref.gru_seq_ref(xs, h0, p))
+    mma = launched("gru_seq.mma")
+    for h in (h0, odd):
+        np.testing.assert_allclose(as_f32(gru_seq(xs, h, p)), want,
+                                   **BF16_TOL)
+    assert launched("gru_seq.mma") == mma + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,sms", [
+    (32, 128, 3),       # 43 columns a block: 3 m64 tiles, 3 warpgroups
+    (32, 300, 4),       # 75: 4 tiles, 4 warpgroups, one tile each
+    (32, 256, 3),       # 86: 5 tiles, two on the first warpgroup
+    (32, 170, 1),       # 170: 8 tiles, two a warpgroup; rows in groups of 16
+    (65, 1024, 12),     # 86 a block, U partly resident, groups of 64 rows
+    (8, 12288, None)])  # every SM: 94 a block, 5 tiles, U partly resident
+def test_gru_seq_bf16_loop_warpgroups_on_card(cuda_device, B, H, sms):
+    """bf16 K4 with more than one warpgroup in the chunk loop, and with two
+    m64 tiles a warpgroup (each warpgroup's A fragments of both held live
+    until the wait): the partition on a card of ``sms`` SMs, launched
+    through the C entry, against the plain version at JAX's bf16
+    tolerance, the same bits from two runs."""
+    rng = np.random.default_rng(B + H)
+    T, E = 8, 16
+    p, xs, h0 = bf16_operands(rng, T, B, E, H, cuda_device)
+    launch = gru_seq_launch(B, E, H, sms or device_sms(cuda_device),
+                            device_smem(cuda_device), torch.bfloat16)
+    assert -(-3 * launch.cols // 64) > 2 and launch.lanes == 1
+    w, bias = pack_w(p)
+    g = projection(xs.view(T * B, E), w, bias)
+    mma = launched("gru_seq.mma")
+    seqs = [_recurrence(g, h0, p, launch) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert launched("gru_seq.mma") == mma + 2 * -(-B // launch.batch)
+    np.testing.assert_array_equal(as_f32(seqs[0]), as_f32(seqs[1]))
+    np.testing.assert_allclose(as_f32(seqs[0]),
+                               as_f32(ref.gru_seq_ref(xs, h0, p)),
+                               **BF16_TOL)
+
+
+@pytest.mark.gpu
+def test_gru_seq_bf16_refuses_a_launch_short_of_shared_memory(cuda_device):
+    """The C entry holds a bf16 launch to its layout's shared memory and
+    refuses one short of it before launching."""
+    rng = np.random.default_rng(16)
+    T, B, E, H = 3, 32, 16, 1792
+    p, xs, h0 = bf16_operands(rng, T, B, E, H, cuda_device)
+    launch = gru_seq_launch(B, E, H, device_sms(cuda_device),
+                            device_smem(cuda_device), torch.bfloat16)
+    w, bias = pack_w(p)
+    g = projection(xs.view(T * B, E), w, bias)
+    seqs = launched("gru_seq.launches")
+    bad = dataclasses.replace(launch, smem_bytes=launch.smem_bytes - 4)
+    with pytest.raises(ValueError, match="no kernel"):
+        _recurrence(g, h0, p, bad)
+    assert launched("gru_seq.launches") == seqs
+    np.testing.assert_allclose(as_f32(_recurrence(g, h0, p, launch)),
+                               as_f32(ref.gru_seq_ref(xs, h0, p)),
                                **BF16_TOL)
 
 
@@ -623,6 +726,7 @@ def test_span_tree_of_each_path_on_card(cuda_device):
     assert got["compile.memo_hit"] == 3 and got["compile.fresh"] == 0
     assert got["gemm.launches"] == got["gemm_bias_act.launches"] == 1
     assert got["gru_seq.launches"] == got["gru_cell.launches"] == 1
+    assert got["gru_seq.mma"] == 1                  # a bf16 sequence
 
 
 @pytest.mark.gpu

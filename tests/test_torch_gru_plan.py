@@ -2,7 +2,7 @@
 the hoisted sequence against the JAX package's Pallas kernels (interpret
 mode), in f32 and bf16, K3's split rule and route, K4's route rule and its
 partition of the card (for f32 and bf16 operands), the step route's plain
-path, and the packing of K4's operands."""
+path, and the packing of K4's operands (bf16 in the tensor cores' layout)."""
 import ctypes
 import re
 
@@ -21,12 +21,13 @@ from repro_torch.kernels import gru as gru_mod
 from repro_torch.kernels.gru import (C_CONSTANTS, CONSTANTS_ARGTYPES,
                                      OCCUPANCY_ARGTYPES, PARAM_NAMES,
                                      SEQ_ARGTYPES, SEQ_KC, SEQ_MAX_B,
-                                     SEQ_MAX_LANES, SEQ_RB, SEQ_STAGES,
-                                     SEQ_THREADS, STEP_ARGTYPES,
+                                     SEQ_MAX_LANES, SEQ_MMA_TILES, SEQ_RB,
+                                     SEQ_STAGES, SEQ_THREADS, STEP_ARGTYPES,
                                      STEP_BLOCKS_PER_SM, STEP_KC, TILE_B,
                                      TILE_H, FusedGRU, gru_cell, gru_seq,
                                      gru_seq_launch, gru_seq_steps,
-                                     gru_split, pack_u, pack_w, seq_route,
+                                     gru_split, pack_u, pack_w, seq_mma,
+                                     seq_route, seq_row,
                                      split_cost, step_route)
 from repro_torch.kernels.ops import gru_tile, plan_gru, scheduled_gru
 
@@ -330,6 +331,7 @@ def assert_partition(B, E, H, sms, smem):
     assert ln.cols * rg * ln.lanes <= ln.threads == SEQ_THREADS
     assert SEQ_KC % (4 * ln.lanes) == 0
     assert ln.hp % SEQ_KC == 0 and H <= ln.hp < H + SEQ_KC
+    assert ln.row == 3 * ln.cols
     assert ln.smem_bytes <= smem <= MAX_SMEM_BYTES
     assert ln.rows_on_chip == ln.hp or ln.rows_on_chip % SEQ_KC == 0
     assert 0 <= ln.rows_on_chip <= ln.hp
@@ -396,13 +398,17 @@ def test_ragged_partition(B, E, H, sms, smem):
 def c_seq_smem_bytes(B, cpb, rows_res, lanes, hp, esize):
     """``csrc/gru.cu``'s seq_smem_bytes, the layout its C entry demands,
     transcribed: the resident panel rows rounded up to 16 bytes, then the
-    larger of the ring (h rows of SEQ_KC + a 16-byte pad, and U rows where
-    not all resident) and the k-lanes' f32 sums."""
-    rg, row = -(-B // SEQ_RB), 3 * cpb
-    stage = rg * SEQ_RB * (SEQ_KC + 16 // esize) \
-        + (SEQ_KC * row if rows_res < hp else 0)
+    larger of the ring (h rows of SEQ_KC + a 16-byte pad, bf16 no pad, and
+    U rows where not all resident) and the k-lanes' f32 sums (bf16: one
+    set, the panel row + 4 floats for each staged batch row).  A bf16 panel
+    row is 3 cpb padded to a multiple of 16."""
+    rg = -(-B // SEQ_RB)
+    row = -(-3 * cpb // 16) * 16 if esize == 2 else 3 * cpb
+    hs = SEQ_KC if esize == 2 else SEQ_KC + 16 // esize
+    stage = rg * SEQ_RB * hs + (SEQ_KC * row if rows_res < hp else 0)
     ring = SEQ_STAGES * stage * esize
-    red = 4 * lanes * cpb * rg * 3 * SEQ_RB
+    red = 4 * (row + 4) * rg * SEQ_RB if esize == 2 \
+        else 4 * lanes * cpb * rg * 3 * SEQ_RB
     return -(-rows_res * row * esize // 16) * 16 + max(ring, red)
 
 
@@ -410,10 +416,18 @@ def test_seq_smem_bytes_is_transcribed_from_the_source():
     src = (CSRC / "gru.cu").read_text()
     body = re.search(r"static long long seq_smem_bytes\((.*?)\n\}", src,
                      re.S).group(1)
-    for piece in ("kSeqKC + 16 / esize", "kSeqStages * stage * esize",
-                  "4LL * lanes * cpb * rg * 3 * kSeqRB",
+    for piece in ("row = seq_row(cpb, esize)",
+                  "esize == 2 ? kSeqKC : kSeqKC + 16 / esize",
+                  "kSeqStages * stage * esize",
+                  "esize == 2 ? 4LL * (row + 4) * rg * kSeqRB",
+                  ": 4LL * lanes * cpb * rg * 3 * kSeqRB",
                   "(rows_res * row * esize + 15) / 16 * 16"):
         assert piece in body
+    row = re.search(r"constexpr int seq_row\(int cpb, int esize\) \{\n"
+                    r"\s*return (.*?);", src).group(1)
+    assert row == "esize == 2 ? cdiv(3 * cpb, 16) * 16 : 3 * cpb"
+    assert [seq_row(c, 2) for c in (1, 4, 5, 14, 24)] == [16, 16, 16, 48, 80]
+    assert [seq_row(c, 4) for c in (1, 4, 14)] == [3, 12, 42]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -425,7 +439,7 @@ def test_partition_fits_seq_smem_bytes(dtype, B, E, H):
     """Every partition, f32 or bf16, gives the C entry exactly the shared
     memory its layout asks for, within the card's limit."""
     if seq_route(B, E, H, dtype) == "step":
-        assert dtype == torch.float32 and H == 19536
+        assert H == 19536
         return
     ln = gru_seq_launch(B, E, H, dtype=dtype)
     esize = dtype.itemsize
@@ -442,8 +456,9 @@ def test_partition_fits_seq_smem_bytes(dtype, B, E, H):
 
 @pytest.mark.parametrize("batch,hidden", DEEPBENCH_GRU)
 def test_bf16_deepbench_partition_keeps_all_of_u(batch, hidden):
-    """Half the bytes a panel row: in bf16 every DeepBench width keeps its
-    whole U panel in shared memory, on the same 128 blocks as f32."""
+    """Half the bytes an element, rows padded to whole m16 tiles: in bf16
+    every DeepBench width keeps its whole U panel in shared memory, on the
+    same 128 blocks as f32."""
     f32 = gru_seq_launch(batch, hidden, hidden)
     bf16 = gru_seq_launch(batch, hidden, hidden, dtype=torch.bfloat16)
     assert (bf16.blocks, bf16.cols, bf16.batch, bf16.hp) == \
@@ -453,16 +468,75 @@ def test_bf16_deepbench_partition_keeps_all_of_u(batch, hidden):
     assert 2 * bf16.u_bytes == f32.u_bytes
 
 
+#: K4's partition at the DeepBench sizes for f32, the fmaf loop's, pinned:
+#: blocks, batch, cols, threads, lanes, hp, row, rows on chip, shared
+#: memory, U bytes on chip, U bytes
+F32_DEEPBENCH_PARTITION = {
+    (32, 512): (128, 32, 4, 512, 16, 512, 12, 512, 59392, 3145728, 3145728),
+    (32, 1024): (128, 32, 8, 512, 16, 1024, 24, 1024, 147456, 12582912,
+                 12582912),
+    (16, 1536): (128, 16, 12, 512, 16, 1536, 36, 1216, 229376, 22413312,
+                 28311552),
+    (32, 1792): (128, 32, 14, 512, 8, 1792, 42, 896, 228352, 19267584,
+                 38535168)}
+
+
+@pytest.mark.parametrize("batch,hidden", DEEPBENCH_GRU)
+def test_f32_deepbench_partition_is_pinned(batch, hidden):
+    """The f32 partition keeps its values: the fmaf loop's k-lanes, its
+    ring and its part-resident panels above H = 1024."""
+    ln = gru_seq_launch(batch, hidden, hidden)
+    assert tuple(vars(ln).values()) == F32_DEEPBENCH_PARTITION[batch, hidden]
+
+
+@pytest.mark.parametrize("batch,hidden,smem", [
+    (32, 512, 32768), (32, 1024, 81920), (16, 1536, 155648),
+    (32, 1792, 188416)])
+def test_bf16_deepbench_partition_feeds_the_tensor_cores(batch, hidden,
+                                                         smem):
+    """bf16 at each DeepBench size: panel rows of 3 cols padded to whole
+    m16 tiles (one m64 tile, so one warpgroup runs the chunk loop), no
+    k-lanes, all of U resident, within the card's 227 KB a block."""
+    ln = gru_seq_launch(batch, hidden, hidden, dtype=torch.bfloat16)
+    assert ln.row == -(-3 * ln.cols // 16) * 16 <= 64
+    assert ln.lanes == 1
+    assert ln.rows_on_chip == ln.hp == hidden
+    assert ln.smem_bytes == smem <= MAX_SMEM_BYTES
+    assert ln.smem_bytes == c_seq_smem_bytes(ln.batch, ln.cols, ln.hp,
+                                             ln.lanes, ln.hp, 2)
+
+
+def test_seq_mma_by_dtype_and_its_warpgroups():
+    """The tensor-core loop is bf16's, never f32's; the kernel counts the
+    warpgroups that run it from the block's columns (csrc/gru.cu's
+    seq_mma_groups: one for each m64 tile of the panel row, up to four),
+    so a bf16 launch carries no k-lanes; a row of more than SEQ_MMA_TILES
+    tiles is refused."""
+    assert seq_mma(torch.bfloat16) and not seq_mma(torch.float32)
+    src = (CSRC / "gru.cu").read_text()
+    assert "constexpr bool kSeqMma = std::is_same<T, bf16>::value;" in src
+    assert "return cdiv(3 * cpb, 64);" in src
+    assert "return seq_mma_tiles(cpb) < 4 ? seq_mma_tiles(cpb) : 4;" in src
+    assert "kSeqMma<T> ? 128 * seq_mma_groups(p.cpb) : kSeqThreads" in src
+    # 171 columns a block: 513 rows, 9 tiles
+    with pytest.raises(ValueError, match="m64 tiles"):
+        gru_seq_launch(1, 8, 171, sms=1, dtype=torch.bfloat16)
+    ln = gru_seq_launch(1, 8, 170, sms=1, dtype=torch.bfloat16)
+    assert (ln.cols, ln.row, ln.lanes) == (170, 512, 1)     # 8 tiles
+
+
 @pytest.mark.parametrize("B", [1, 8, 64, 300])
-@pytest.mark.parametrize("dtype,last", [(torch.float32, 9504),
-                                        (torch.bfloat16, 19536)],
+@pytest.mark.parametrize("dtype,last,rows", [(torch.float32, 9504, SEQ_RB),
+                                             (torch.bfloat16, 19008, 16)],
                          ids=["f32", "bf16"])
-def test_seq_route_boundary(B, dtype, last):
+def test_seq_route_boundary(B, dtype, last, rows):
     """On an H100 the persistent kernel places any batch (groups of rows,
-    down to SEQ_RB) up to H = 9504 in f32 and 19536 in bf16; one column
-    more a block, and the sequence takes the step route."""
+    down to SEQ_RB) up to H = 9504 in f32 and 19008 in bf16 (144 columns a
+    block, whose tensor-core panel rows of 432 elements leave room for a
+    ring of 16 batch rows that streams U); one column more a block, and
+    the sequence takes the step route."""
     assert seq_route(B, 512, last, dtype) == "persistent"
-    assert gru_seq_launch(B, 512, last, dtype=dtype).batch == min(B, SEQ_RB)
+    assert gru_seq_launch(B, 512, last, dtype=dtype).batch == min(B, rows)
     assert seq_route(B, 512, last + 1, dtype) == "step"
     with pytest.raises(ValueError, match="shared memory"):
         gru_seq_launch(B, 512, last + 1, dtype=dtype)
@@ -577,6 +651,51 @@ def test_packing_round_trip(B, E, H):
                                    atol=0)
 
 
+def unpack_u_mma(packed, H, cols):
+    """``pack_u``'s inverse for bf16 (ldmatrix order): (Ur, Uz, Un), and
+    the panel rows (blocks, Hp, row) with their padding."""
+    blocks, kb, mt = packed.shape[:3]
+    rows = packed.permute(0, 1, 3, 5, 2, 4, 6).reshape(blocks, 16 * kb,
+                                                       16 * mt)
+    u = rows[..., :3 * cols].unflatten(2, (3, cols)).permute(2, 1, 0, 3) \
+        .reshape(3, 16 * kb, blocks * cols)[:, :H, :H]
+    return tuple(m.contiguous() for m in u), rows
+
+
+@pytest.mark.parametrize("B,E,H,sms", [(b, e, h, H100_SMS)
+                                       for b, e, h in RAGGED]
+                         + [(32, 64, 1792, H100_SMS), (8, 16, 3072, H100_SMS),
+                            (3, 8, 200, 7), (1, 8, 512, 4)])
+def test_bf16_packing_round_trip(B, E, H, sms):
+    """bf16 panels in the layout the tensor-core loop reads: unpacking gives
+    back Ur, Uz, Un exactly, with zeros in every padded row and column, and
+    each 8 x 8 matrix that ldmatrix reads is 8 rows of U x 8 columns."""
+    rng = np.random.default_rng(E + H)
+    p = {n: v.to(torch.bfloat16)
+         for n, v in torch_params(make_params(rng, E, H)).items()}
+    ln = gru_seq_launch(B, E, H, sms, dtype=torch.bfloat16)
+    packed = pack_u(p, ln)
+    assert tuple(packed.shape) == (ln.blocks, ln.hp // 16, ln.row // 16, 2,
+                                   2, 8, 8)
+    assert packed.is_contiguous() and packed.dtype == torch.bfloat16
+    got, rows = unpack_u_mma(packed, H, ln.cols)
+    for m, name in zip(got, ("Ur", "Uz", "Un")):
+        torch.testing.assert_close(m, p[name], rtol=0, atol=0)
+    assert not rows[:, H:].any() and not rows[..., 3 * ln.cols:].any()
+    full = rows[..., :3 * ln.cols].unflatten(2, (3, ln.cols)) \
+        .permute(2, 1, 0, 3).reshape(3, ln.hp, ln.blocks * ln.cols)
+    assert not full[:, :, H:].any()
+    # block 0's panel, built apart: its matrix (1, 1) of the first 16 x 16
+    # is rows 8..15 x panel columns 8..15
+    pad = torch.zeros(3, ln.hp, ln.blocks * ln.cols, dtype=torch.bfloat16)
+    pad[:, :H, :H] = torch.stack([p["Ur"], p["Uz"], p["Un"]])
+    want = torch.zeros(ln.hp, ln.row, dtype=torch.bfloat16)
+    want[:, :3 * ln.cols] = pad[:, :, :ln.cols].permute(1, 0, 2) \
+        .reshape(ln.hp, 3 * ln.cols)
+    torch.testing.assert_close(packed[0, 0, 0, 1, 1], want[8:16, 8:16],
+                               rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("B,E,H", [(3, 12, 50), (17, 40, 33)])
 def test_block_panels_give_the_recurrence(B, E, H):
     """The sequence as the kernel's blocks compute it, one panel each, on
@@ -624,7 +743,7 @@ def test_mirrored_constants_match_the_source():
     also asks the built library, ``repro_gru_constants``, on the card)."""
     src = (CSRC / "gru.cu").read_text()
     names = ("kStepKC", "kSeqThreads", "kSeqKC", "kSeqStages", "kSeqRB",
-             "kSeqMaxB")
+             "kSeqMaxB", "kSeqMmaTiles")
     got = tuple(int(re.search(rf"constexpr int {n} = (\d+);", src).group(1))
                 for n in names)
     assert got == C_CONSTANTS
