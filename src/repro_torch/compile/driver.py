@@ -26,8 +26,6 @@ the modeled GPU, ``gpu_sm(8)``.
 """
 from __future__ import annotations
 
-import copy
-
 from ..core import instructions as I
 from ..core import kernels_ir as K
 from ..core.approach import Approach, CostModelApproach, GreedyApproach
@@ -142,7 +140,8 @@ def _strip(art: CompiledKernel) -> CompiledKernel:
     """A detached copy holding only the serializable payload — what the memo
     keeps (and hands back) so it never pins live schedules/selections; a
     consumer that needs the schedule calls ``ensure_schedule()``."""
-    s = copy.copy(art)
+    s = object.__new__(type(art))
+    s.__dict__.update(art.__dict__)
     s.program = s.graph = s.approach = s.isa = None
     s.selection = s.schedule = None
     s.meta = dict(art.meta)

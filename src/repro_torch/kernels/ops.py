@@ -9,6 +9,10 @@ block — measured on the card by ``python -m repro_torch.search.tune
 --backend measure`` — takes the compiler's place.  ``scheduled_gru`` does
 the same for the GRU sequence's input projection (K2, before K4's
 recurrence); ``gru_tile`` maps the compiler's GRU plan to K3's tile.
+``scheduled_conv`` runs the paper's conv-to-GEMM extraction: the conv
+frontend (``compile_conv``) fuses a stride-1 1x1 convolution's batch, y
+and x into one GEMM axis, and K1 runs that GEMM on views of the NHWC
+activation and the filter at the block of the extraction's matmul plan.
 
 The GPU lowering (``pallas_gpu_gemm``) describes a thread-block *cluster*
 of ``GPU_SMS_PER_CLUSTER`` = 16 SMs: its block fills the cluster's shared
@@ -26,9 +30,9 @@ from dataclasses import asdict, dataclass
 
 import torch
 
-from ..compile import CompileError, compile_gemm, compile_gru
+from ..compile import CompileError, compile_conv, compile_gemm, compile_gru
 from ..core.sysgraph import GPU_SMS_PER_CLUSTER, SystemGraph
-from ..telemetry import span
+from ..telemetry import count, span
 from .cuda import MAX_SMEM_BYTES
 from .gemm import (Launch, Route, clamp_choice, gemm, gemm_bias_act,
                    gemm_launch, gemm_route, operand_route, pow2_at_least,
@@ -38,6 +42,13 @@ from .gru import TILE_B, TILE_H, gru_cell, gru_seq
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _block_lowering(block, shape) -> dict:
+    """The ``pallas_gpu_gemm`` lowering of ``block`` over the (m, n, k)
+    ``shape``."""
+    return {"kind": "pallas_gpu_gemm", "block": list(block),
+            "grid": [_cdiv(e, b) for e, b in zip(shape, block)]}
 
 
 @dataclass(frozen=True)
@@ -118,10 +129,8 @@ def plan_gemm(m: int, n: int, k: int, dtype: torch.dtype = torch.float32,
             rec = tuned_record(m, n, k, graph) if use_cache else None
         if rec is not None:
             from ..search.cache import clamp_tile
-            block = clamp_tile(rec.tile, m, n, k)
-            lowering = {"kind": "pallas_gpu_gemm", "block": list(block),
-                        "grid": [_cdiv(e, b) for e, b in zip((m, n, k),
-                                                             block)]}
+            lowering = _block_lowering(clamp_tile(rec.tile, m, n, k),
+                                       (m, n, k))
             cost = rec.cost
         else:
             art = compile_gemm(m, n, k, approach="greedy", graph=graph,
@@ -152,6 +161,55 @@ def plan_gru(batch: int, hidden: int, inp: int | None = None,
         f"(have: {[p.needle for p in art.instrs]})")
 
 
+def conv_gemm(art, batch: int, h: int, w: int, cin: int, cout: int
+              ) -> tuple[tuple[int, int, int], tuple[int, int, int]]:
+    """The GEMM a conv artifact's extraction is: (its block, (m, n, k)).
+
+    The selection must be one ``mxu.matmul`` call that covers the whole
+    convolution, with ``i`` on batch, y and x fused in NHWC order (``byx``;
+    those of extent 1 are dropped before the fusion), ``j`` on ``co`` and
+    ``k`` on ``ci``: then (m, n, k) is (batch·h·w, cout, cin) and the
+    block is the plan's ``gemm_tile()`` clamped to it.  Any other selection
+    (a stride, a kernel wider than 1x1, more calls, another axis order)
+    raises ``CompileError``."""
+    plans = art.instrs
+    p = plans[0] if len(plans) == 1 else None
+    fused = ("b" * (batch != 1)) + ("y" * (h != 1)) + ("x" * (w != 1))
+    if (p is None or not p.needle.startswith("mxu.matmul") or p.calls != 1
+            or p.outer_axes
+            or dict(p.axis_map) != {"i": fused, "j": "co", "k": "ci"}):
+        raise CompileError(f"the conv's extraction is not one GEMM: "
+                           f"{[q.to_dict() for q in plans]}")
+    m, n, k = shape = (batch * h * w, cout, cin)
+    tile = dict(p.tile)
+    return (min(tile["i"], m), min(tile["j"], n), min(tile["k"], k)), shape
+
+
+def plan_conv(batch: int, h: int, w: int, cin: int, cout: int,
+              dtype: torch.dtype = torch.float32,
+              graph: SystemGraph | None = None, route: Route | None = None,
+              *, kh: int = 1, kw: int = 1) -> tuple[LaunchConfig, float]:
+    """Compile a stride-1 ``kh`` x ``kw`` convolution of ``batch`` x ``h``
+    x ``w`` outputs, ``cin`` to ``cout`` channels, through the conv
+    frontend (``compile_conv``, greedy, against ``graph``, default
+    ``gpu_sm(8)``); return (the K1 launch of the GEMM its extraction is, on
+    ``route``, default ``gemm_route(dtype, cin)``, and the modeled
+    seconds).
+
+    The block is the extraction's own matmul plan (``conv_gemm``), never
+    the tuning cache's, and the artifact's lowering is not read.  A
+    convolution whose extraction is not one GEMM raises ``CompileError``,
+    and nothing falls back.  A warm call is a hit of the compiler's
+    signature memo and of the launch memo behind ``launch_config``."""
+    with span("ops.plan"):
+        art = compile_conv(approach="greedy", graph=graph, batch=batch, h=h,
+                           w=w, kh=kh, kw=kw, cin=cin, cout=cout)
+        with span("plan.extract"):
+            block, shape = conv_gemm(art, batch, h, w, cin, cout)
+        with span("plan.launch"):
+            return _launch_config(block, shape, dtype, route), art.cost
+
+
 def scheduled_gemm(a: torch.Tensor, b: torch.Tensor,
                    graph: SystemGraph | None = None
                    ) -> tuple[torch.Tensor, LaunchConfig]:
@@ -163,6 +221,38 @@ def scheduled_gemm(a: torch.Tensor, b: torch.Tensor,
         cfg, _ = plan_gemm(m, n, k, dtype=a.dtype, graph=graph,
                            route=operand_route(a, b))
         return gemm(a, b, tile=cfg.tile), cfg
+
+
+def scheduled_conv(x: torch.Tensor, w: torch.Tensor,
+                   graph: SystemGraph | None = None
+                   ) -> tuple[torch.Tensor, LaunchConfig]:
+    """The stride-1 convolution of the NHWC activation ``x`` ``[B, H, W,
+    Cin]`` by the filter ``w`` ``[kh, kw, Cin, Cout]`` (ISAMIR's
+    ``conv2d`` layout) as one K1 GEMM at ``plan_conv``'s launch; returns
+    the NHWC output and the launch.
+
+    K1 reads ``x`` as its (B·H·W, Cin) view and ``w`` as its (Cin, Cout)
+    view and writes the output whose ``[B, H, W, Cout]`` view is returned:
+    nothing is copied, so a non-contiguous ``x`` or ``w`` raises
+    ``CompileError``, as does a filter wider than 1x1 (``plan_conv``).
+    Counts ``conv.gemm`` once a convolution run."""
+    with span("ops.conv"):
+        if x.dim() != 4 or w.dim() != 4 or w.shape[2] != x.shape[3]:
+            raise ValueError(f"conv of {tuple(x.shape)} by {tuple(w.shape)}:"
+                             f" need x [B, H, W, Cin], w [kh, kw, Cin, Cout]")
+        if not (x.is_contiguous() and w.is_contiguous()):
+            raise CompileError("the conv's GEMM reads views of x and w: "
+                               "both must be contiguous")
+        batch, hi, wi, cin = x.shape
+        kh, kw, _, cout = w.shape
+        h, wo = hi - kh + 1, wi - kw + 1
+        a, b = x.view(-1, cin), w.view(-1, cout)
+        cfg, _ = plan_conv(batch, h, wo, cin, cout, dtype=x.dtype,
+                           graph=graph, route=operand_route(a, b), kh=kh,
+                           kw=kw)
+        y = gemm(a, b, tile=cfg.tile)
+        count("conv.gemm")
+        return y.view(batch, h, wo, cout), cfg
 
 
 def scheduled_gru(xs: torch.Tensor, h0: torch.Tensor, gru,
@@ -184,7 +274,8 @@ def scheduled_gru(xs: torch.Tensor, h0: torch.Tensor, gru,
 
 
 __all__ = [
-    "LaunchConfig", "gemm", "gemm_bias_act", "gru_cell", "gru_seq",
-    "gru_tile", "launch_config", "plan_gemm", "plan_gru", "scheduled_gemm",
+    "LaunchConfig", "conv_gemm", "gemm", "gemm_bias_act",
+    "gru_cell", "gru_seq", "gru_tile", "launch_config", "plan_conv",
+    "plan_gemm", "plan_gru", "scheduled_conv", "scheduled_gemm",
     "scheduled_gru", "tuned_block",
 ]

@@ -45,11 +45,13 @@ LAUNCH_COUNTERS = ("gemm.launches", "gemm_bias_act.launches",
                    "gemm_transpose", "gemm_reduce")
 #: every counter, by name; these read 0 from import.  ``gru_seq.mma``
 #: counts K4's launches that ran the tensor-core inner product (bf16), a
-#: share of ``gru_seq.launches``, not a launch of its own
+#: share of ``gru_seq.launches``, not a launch of its own; ``conv.gemm``
+#: counts the convolutions ``ops.scheduled_conv`` ran as one K1 GEMM, each
+#: beside its ``gemm.launches``
 _counts = dict.fromkeys(("compile.memo_hit", "compile.memo_sig",
                          "compile.fresh", "graph.nodes", "graph.gemm_nodes",
                          "graph.k2_nodes", "graph.stream_nodes",
-                         "gru_seq.mma") + LAUNCH_COUNTERS, 0)
+                         "gru_seq.mma", "conv.gemm") + LAUNCH_COUNTERS, 0)
 
 
 class Span(NamedTuple):

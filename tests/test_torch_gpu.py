@@ -22,7 +22,9 @@ from repro_torch.kernels.gru import (PARAM_NAMES, TILE_B, TILE_H, FusedGRU,
                                      gru_cell, gru_seq, gru_seq_launch,
                                      pack_w, seq_route, step_blocks_per_sm,
                                      step_route)
-from repro_torch.kernels.ops import scheduled_gemm, scheduled_gru
+from repro_torch.kernels.ops import (scheduled_conv, scheduled_gemm,
+                                     scheduled_gru)
+from repro_torch.models import resnet50_1x1_reference as resnet
 from repro_torch.search.evaluate import MeasuredGemmEvaluator
 
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
@@ -727,6 +729,82 @@ def test_span_tree_of_each_path_on_card(cuda_device):
     assert got["gemm.launches"] == got["gemm_bias_act.launches"] == 1
     assert got["gru_seq.launches"] == got["gru_cell.launches"] == 1
     assert got["gru_seq.mma"] == 1                  # a bf16 sequence
+
+
+#: the 12 distinct (h, w, cin, cout) of ResNet-50's 33 stride-1 1x1 convs
+RESNET_1X1 = list(dict.fromkeys((c["h"], c["w"], c["cin"], c["cout"])
+                                for c in resnet.pointwise_convs()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+def test_resnet_1x1_convs_on_card(cuda_device, tdt, monkeypatch):
+    """ResNet-50's stride-1 pointwise convs at batch 28 and published widths
+    through ``scheduled_conv``: each one K1 launch on views of x and w,
+    returning K1's own output, within K1's card tolerances of the float64
+    reference (f32: scaled by max |y|)."""
+    from repro_torch.kernels import ops
+    sound, seen = ops.gemm, []
+
+    def spy(a, b, tile=None):
+        seen.append((a, b, sound(a, b, tile=tile)))
+        return seen[-1][2]
+    monkeypatch.setattr(ops, "gemm", spy)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(34)
+    tol = TOL[tdt]
+    for h, w, cin, cout in RESNET_1X1:
+        x = torch.randn((28, h, w, cin), generator=gen,
+                        device=cuda_device).to(tdt)
+        wt = resnet.init_weight(cin, cout, gen, cuda_device).to(tdt)
+        before = counts(), launched("conv.gemm")
+        y, cfg = scheduled_conv(x, wt)
+        torch.cuda.synchronize()
+        assert counts()[0] == before[0][0] + 1
+        assert launched("conv.gemm") == before[1] + 1
+        a, b, c = seen[-1]
+        assert a.data_ptr() == x.data_ptr() and b.data_ptr() == wt.data_ptr()
+        assert y.data_ptr() == c.data_ptr() and y.shape == (28, h, w, cout)
+        assert cfg.route == ("wgmma" if tdt == torch.bfloat16 else "simt")
+        want = resnet.conv1x1(x, wt)
+        scale = float(want.abs().max()) if tdt == torch.float32 else 1.0
+        np.testing.assert_allclose(
+            as_f32(y), want.float().cpu().numpy(), rtol=tol["rtol"],
+            atol=tol["atol"] * scale, err_msg=f"{(h, w, cin, cout)} {cfg}")
+
+
+@pytest.mark.gpu
+def test_span_tree_of_scheduled_conv_on_card(cuda_device):
+    """A warm bf16 conv records the plan's extraction and K1's launch path
+    below ``ops.conv``, and counts one launch of each of K1's passes, one
+    ``conv.gemm`` and one memo hit."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(35)
+    x = torch.randn((4, 14, 14, 256), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    wt = resnet.init_weight(256, 64, gen, cuda_device).to(torch.bfloat16)
+    scheduled_conv(x, wt)
+    torch.cuda.synchronize()
+    before = telemetry.counters()
+    with telemetry.recording() as rec:
+        _, cfg = scheduled_conv(x, wt)
+    torch.cuda.synchronize()
+    after = telemetry.counters()
+    spans = rec.spans()
+    below = {}
+    for s in spans:
+        key = spans[s.parent].name if s.parent >= 0 else None
+        below.setdefault(key, []).append(s.name)
+    assert below[None] == ["ops.conv"]
+    assert below["ops.conv"] == ["ops.plan", "k1"]
+    assert below["ops.plan"] == ["compile.conv", "plan.extract",
+                                 "plan.launch"]
+    assert below["k1"] == ["k1.check", "k1.alloc", "k1.call"]
+    got = {k: after[k] - before[k] for k in after}
+    assert got["compile.memo_hit"] == got["conv.gemm"] == 1
+    assert got["compile.fresh"] == 0
+    assert got["gemm.launches"] == got["gemm_transpose"] == 1
+    assert got["gemm_reduce"] == int(cfg.split > 1)
 
 
 @pytest.mark.gpu

@@ -48,7 +48,8 @@ def test_importing_the_port_loads_no_jax():
                  "models.layers", "models.attention", "models.moe",
                  "models.transformer", "models.whisper", "models.xlstm",
                  "models.xlstm_lm", "models.mamba", "models.hybrid",
-                 "models.api",
+                 "models.api", "models.whisper_block_reference",
+                 "models.resnet50_1x1_reference",
                  "models.convert", "launch", "launch.steps",
                  "launch.caches", "launch.serve", "launch.train",
                  "launch.mesh", "optim", "optim.adamw", "data",

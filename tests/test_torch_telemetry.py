@@ -151,7 +151,7 @@ def test_counters_are_one_store_that_holds_every_name(monkeypatch):
         "graph.stream_nodes", "gemm.launches",
         "gemm_bias_act.launches", "gemm_transpose", "gemm_reduce",
         "gru_cell.launches", "gru_cell_reduce", "gru_seq.launches",
-        "gru_seq.mma"}
+        "gru_seq.mma", "conv.gemm"}
     assert set(telemetry.LAUNCH_COUNTERS) <= set(before)
     assert all(v >= 0 for v in before.values())
     telemetry.count("gemm.launches", 3)
